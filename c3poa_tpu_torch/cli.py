@@ -6,7 +6,8 @@ C3POa.py:26-63) without the multi-host flags, and with
 - cuda: the hand-written CUDA kernels on the card; an error if there is
   no usable card (no silent fallback);
 - cpu: the same backend with the plain torch versions on the CPU;
-- numpy: the reference numpy/C backend of ``c3poa_tpu``.
+- numpy: the reference numpy/C backend (this package's copy of
+  ``pipeline/backend.py:NumpyBackend``).
 """
 
 from __future__ import annotations
@@ -14,10 +15,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-from c3poa_tpu.consensus.engine import ConsensusParams
-from c3poa_tpu.pipeline.run import PipelineConfig, run_pipeline
-
 from . import __version__
+from .consensus.engine import ConsensusParams
+from .pipeline.run import PipelineConfig, run_pipeline
 
 VERSION = f"v2.2.3+torch ({__version__})"
 
@@ -76,12 +76,43 @@ def parse_args(argv=None):
 
 def pick_backend(name: str):
     if name == "numpy":
-        from c3poa_tpu.pipeline.backend import NumpyBackend
+        from .pipeline.backend import NumpyBackend
         return NumpyBackend()
     if name in ("cuda", "cpu"):
         from .pipeline.torch_backend import TorchBackend
         return TorchBackend(name)
     raise ValueError(name)
+
+
+def supervise(argv, module="c3poa_tpu_torch.cli"):
+    """Relaunch the CLI under a restart loop: the child exits with
+    RESTART_EXIT_CODE at a durable group checkpoint when RSS crosses
+    --rss-restart-mb; every relaunch continues via --resume
+    (byte-identical, progress guaranteed — the child only restarts after
+    completing at least one new group).  A copy of
+    ``c3poa_tpu/cli.py:162`` (that module imports jax paths)."""
+    import os
+    import subprocess
+
+    from .utils.mem import RESTART_EXIT_CODE
+
+    cmd = [sys.executable, "-m", module] + list(argv)
+    env = dict(os.environ, C3POA_SUPERVISED="1")
+    restarts = -1
+    while True:
+        restarts += 1
+        rc = subprocess.call(cmd, env=env)
+        if rc != RESTART_EXIT_CODE:
+            if restarts:
+                print(f"rss supervisor: {restarts} restart(s)",
+                      file=sys.stderr)
+            return rc
+        # the first child launch uses the user's flags verbatim; only
+        # RESTARTS imply resume semantics — otherwise a fresh run into an
+        # output dir holding an old completed manifest would silently
+        # skip all work (ADVICE r3)
+        if "--resume" not in cmd:
+            cmd.append("--resume")
 
 
 def main(argv=None):
@@ -93,7 +124,7 @@ def main(argv=None):
               file=sys.stderr)
         sys.exit(1)
     if args.rss_restart_mb:
-        from c3poa_tpu.utils.mem import rss_mb
+        from .utils.mem import rss_mb
         if rss_mb() == 0:
             print("--rss-restart-mb: RSS monitoring unavailable on this "
                   "platform (/proc/self/status unreadable); the memory "
@@ -104,13 +135,12 @@ def main(argv=None):
                   "supported with -co", file=sys.stderr)
             sys.exit(1)
         if os.environ.get("C3POA_SUPERVISED") != "1":
-            from c3poa_tpu.cli import supervise
             return supervise(argv if argv is not None else sys.argv[1:],
                              module="c3poa_tpu_torch.cli")
     group_size = args.groupSize
     if args.blatThreads and args.numThreads > 1:
         # reference -b: chunk = reads // threads (bin/preprocess.py:81-84)
-        from c3poa_tpu.io.fastx import read_fastx
+        from .io.fastx import read_fastx
         n_pass = sum(1 for r in read_fastx(args.reads)
                      if len(r.seq) >= args.lencutoff)
         group_size = max(1, -(-n_pass // args.numThreads))
@@ -126,7 +156,7 @@ def main(argv=None):
         cons=ConsensusParams(),
     )
     backend = pick_backend(args.backend)
-    from c3poa_tpu.utils.mem import RESTART_EXIT_CODE, RssRestartNeeded
+    from .utils.mem import RESTART_EXIT_CODE, RssRestartNeeded
     try:
         stats = run_pipeline(args.reads, args.splint_file, args.out_path,
                              cfg, backend)

@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(
         __file__)))), "build", "c3poa_tpu_torch")
 # one library per source; never --use_fast_math (band_lo needs IEEE
 # f32 division and round-half-even, see csrc/band_lo.cuh)
-SOURCES = ("profile", "banded")
+SOURCES = ("profile", "banded", "adapters")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -43,6 +43,7 @@ SIGNATURES = {
     "profile": {"c3t_start_profile": [_P] * 4 + [_I] * 8 + [_P]},
     "banded": {"c3t_banded_fwd": [_P] * 7 + [_I] * 8 + [_P],
                "c3t_banded_walk": [_P] * 8 + [_I] * 5 + [_P]},
+    "adapters": {"c3t_adapter_hits": [_P] * 6 + [_I] * 8 + [_P]},
 }
 
 _LOCK = threading.Lock()

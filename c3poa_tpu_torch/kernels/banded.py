@@ -331,7 +331,7 @@ def unpack_ops_packed(row: np.ndarray) -> np.ndarray:
 def ops_to_record(q: np.ndarray, t: np.ndarray, ops: np.ndarray,
                   j_end: int):
     """Python fallback: rebuild an AlignRecord from the walk ops."""
-    from c3poa_tpu.ref.banded import AlignRecord
+    from ..ref.banded import AlignRecord
 
     nq, nt = len(q), len(t)
     cover = np.zeros(nt, dtype=np.int8)

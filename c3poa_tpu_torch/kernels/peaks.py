@@ -197,7 +197,7 @@ def select_peaks_host(cand_pos: np.ndarray, cand_h: np.ndarray,
                       min_dist: int):
     """Exact scipy distance selection per read on the compacted
     candidates.  Returns a list of int64 arrays (ascending positions)."""
-    from c3poa_tpu.ref.peaks import select_by_distance
+    from ..ref.peaks import select_by_distance
 
     out = []
     for b in range(cand_pos.shape[0]):

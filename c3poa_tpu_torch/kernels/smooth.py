@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from c3poa_tpu.ref.sg import sg_coeffs
+from ..ref.sg import sg_coeffs
 
 
 def smooth3_batch(scores: torch.Tensor, lens: torch.Tensor,

@@ -1,0 +1,799 @@
+"""ctypes bindings for the native host library (C sources in
+``native_src/``, built by ``gcc`` at first use).
+
+Provides C fast paths for the host-side hot loops — traceback, indel
+normalization, consensus voting, fastx parsing — with automatic fallback to
+the pure-Python implementations when the library is absent (no ``gcc``).
+Parity between both paths is enforced by tests.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+
+import numpy as np
+
+_LIB = None
+_TRIED = False
+
+# c3poa_tpu/native.py:20-55 differs: that loader reads native/ and may
+# rerun its Makefile.  This one builds its own copy of the sources once
+# per content hash into build/c3poa_tpu_torch/native/ (beside the
+# package) and never reads or writes native/libc3poa_native.so.
+SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "native_src")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "build", "c3poa_tpu_torch", "native")
+# the sources and flags of native/Makefile
+SOURCES = ("traceback.c", "fastxio.c", "dpbench.c", "overlap.c", "align.c",
+           "poa.c")
+CFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c99", "-Wall", "-Wextra",
+          "-pthread", "-shared")
+# why the last build failed (None when it did not)
+build_error = None
+
+
+def lib_path() -> str:
+    """Path of the library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(CFLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(SRC_DIR, name), "rb") as fh:
+            h.update(name.encode() + fh.read())
+    return os.path.join(BUILD_DIR, f"libc3poa_native-{h.hexdigest()[:16]}.so")
+
+
+def _find_lib():
+    """Build the library unless it is built; None without gcc or when
+    gcc fails (the Python paths then run).  A file lock serializes
+    concurrent builders (test workers); the library appears by an atomic
+    rename, so a reader never sees a partial file."""
+    global build_error
+    path = lib_path()
+    if os.path.exists(path):
+        return path
+    gcc = shutil.which("gcc")
+    if gcc is None:
+        build_error = "gcc not found"
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return path
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [gcc, *CFLAGS, "-o", tmp,
+             *(os.path.join(SRC_DIR, n) for n in SOURCES), "-lm"],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            build_error = f"gcc exited {proc.returncode}: {proc.stderr}"
+            return None
+        os.replace(tmp, path)
+    return path
+
+
+def get_lib():
+    global _LIB, _TRIED
+    if _TRIED:
+        return _LIB
+    _TRIED = True
+    path = _find_lib()
+    if path is None:
+        return None
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError:
+        return None
+
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+
+    lib.c3_traceback.restype = i32
+    lib.c3_traceback.argtypes = [
+        u8p, i32, i32, i8p, i32, i32, i32,
+        i8p, i8p, i32p, i32p, i32p,
+    ]
+    try:
+        lib.c3_traceback_edge.restype = i32
+        lib.c3_traceback_edge.argtypes = \
+            lib.c3_traceback.argtypes + [ctypes.POINTER(i32)]
+    except AttributeError:  # stale .so without the edge symbol
+        pass
+    lib.c3_normalize.restype = None
+    lib.c3_normalize.argtypes = [i8p, i8p, i32, i8p, i8p, i32p, i32p, i32p]
+    lib.c3_ops_record.restype = i32
+    lib.c3_ops_record.argtypes = [
+        u8p, i32, i8p, i32, i32, i32,
+        i8p, i8p, i32p, i32p, i32p,
+    ]
+    lib.c3_ops_record_packed.restype = i32
+    lib.c3_ops_record_packed.argtypes = lib.c3_ops_record.argtypes
+    lib.c3_vote.restype = i32
+    lib.c3_vote.argtypes = [
+        i32, i32, i8p, i8p, i32p, i32p, i32p, i32p,
+        i8p, i8p, i64p, i32, i8p, i8p, i32,
+    ]
+    try:
+        lib.c3_format_fastx.restype = i64
+        lib.c3_format_fastx.argtypes = [
+            i32, u8p, i64p, i8p, i64p, i8p, i32, u8p, i64,
+        ]
+    except AttributeError:  # stale .so without the formatter symbol
+        pass
+    lib.c3_parse_fastq.restype = i64
+    lib.c3_parse_fastq.argtypes = [u8p, i64, i8p, i8p, i64, i64p, i64p, i64]
+    lib.c3_parse_fasta.restype = i64
+    lib.c3_parse_fasta.argtypes = [u8p, i64, i8p, i64, i64p, i64p, i64]
+    lib.c3_decode.restype = None
+    lib.c3_decode.argtypes = [i8p, i64, u8p]
+    try:
+        lib.c3_ops_records_batch.restype = None
+        lib.c3_ops_records_batch.argtypes = [
+            u8p, i64, i32, i8p, i64p, i8p, i64p, i32p,
+            i8p, i8p, i32p, i32p, i32p, i64p, i64p, i32p, i32,
+        ]
+    except AttributeError:
+        pass
+    try:
+        lib.c3_vote_jobs.restype = None
+        lib.c3_vote_jobs.argtypes = [
+            i32, i64p, i64p, i64p, i64p, i64p,
+            i8p, i8p, i32p, i32p, i32p, i32p,
+            i8p, i8p, i8p, i8p, i32,
+            i8p, i8p, i32p, i32,
+        ]
+    except AttributeError:  # stale .so without the batched vote symbol
+        pass
+    try:
+        lib.c3_find_overlap.restype = i32
+        lib.c3_find_overlap.argtypes = [
+            i8p, i64, i8p, i64, i32, i32, i32, i64p,
+        ]
+    except AttributeError:  # stale .so without the overlap symbol
+        pass
+    try:
+        lib.c3_sliding_min_dist_multi.restype = None
+        lib.c3_sliding_min_dist_multi.argtypes = [
+            u8p, i64p, u8p, i64p, i32, i32p,
+        ]
+    except AttributeError:  # stale .so without the demux symbol
+        pass
+    try:
+        lib.c3_dp_score.restype = i64
+        lib.c3_dp_score.argtypes = [
+            i8p, i64, i8p, i64, i64, i64, i64, i64, i64,
+            i64p, i64p, i64p, i64p, i64p,
+        ]
+    except AttributeError:  # stale .so without the bench symbol
+        pass
+    try:
+        lib.c3_align_moves.restype = i64
+        lib.c3_align_moves.argtypes = [
+            i8p, i32, i8p, i32, i64, i64, i64, i64, i32,
+            u8p, i64p, ctypes.POINTER(i32),
+        ]
+    except AttributeError:  # stale .so without the CPU aligner symbol
+        pass
+    try:
+        lib.c3_poa_consensus.restype = i64
+        lib.c3_poa_consensus.argtypes = [
+            i8p, i8p, i64p, i32, i64, i64, i64, i64, i8p, i8p, i64,
+        ]
+    except AttributeError:  # stale .so without the POA symbol
+        pass
+    _LIB = lib
+    return _LIB
+
+
+def available() -> bool:
+    return get_lib() is not None
+
+
+# ---------------- traceback + normalize ----------------
+
+def traceback_normalize(q: np.ndarray, t: np.ndarray, moves: np.ndarray,
+                        j_end: int, band: int):
+    """C fast path for kernels.banded.traceback_banded + ref.normalize_record.
+
+    Returns an AlignRecord (already normalized), or None if the native
+    library is unavailable.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    from .ref.banded import AlignRecord
+
+    q = np.ascontiguousarray(q, dtype=np.int8)
+    t = np.ascontiguousarray(t, dtype=np.int8)
+    moves = np.ascontiguousarray(moves, dtype=np.uint8)
+    nq, nt = len(q), len(t)
+    cover = np.zeros(nt, dtype=np.int8)
+    base = np.zeros(nt, dtype=np.int8)
+    qpos = np.zeros(nt, dtype=np.int32)
+    ins_len = np.zeros(nt + 1, dtype=np.int32)
+    ins_qstart = np.zeros(nt + 1, dtype=np.int32)
+    j_start = lib.c3_traceback(
+        moves, moves.shape[0], band, q, nq, nt, int(j_end),
+        cover, base, qpos, ins_len, ins_qstart)
+    lib.c3_normalize(q, t, nt, cover, base, qpos, ins_len, ins_qstart)
+    return AlignRecord(cover, base, qpos, ins_len, ins_qstart,
+                       int(j_start), int(j_end), 0)
+
+
+def ops_record_normalize(q: np.ndarray, t: np.ndarray, ops: np.ndarray,
+                         j_end: int, packed: bool = False):
+    """C fast path: record from device-traceback ops + normalization.
+    ``packed`` selects the 2-bit/4-per-byte gapped encoding emitted by
+    walk_ops_cached.  Returns an AlignRecord or None if the native
+    library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    from .ref.banded import AlignRecord
+
+    q = np.ascontiguousarray(q, dtype=np.int8)
+    t = np.ascontiguousarray(t, dtype=np.int8)
+    ops = np.ascontiguousarray(ops, dtype=np.uint8)
+    nq, nt = len(q), len(t)
+    cover = np.zeros(nt, dtype=np.int8)
+    base = np.zeros(nt, dtype=np.int8)
+    qpos = np.zeros(nt, dtype=np.int32)
+    ins_len = np.zeros(nt + 1, dtype=np.int32)
+    ins_qstart = np.zeros(nt + 1, dtype=np.int32)
+    fn = lib.c3_ops_record_packed if packed else lib.c3_ops_record
+    j_start = fn(ops, len(ops), q, nq, nt, int(j_end),
+                 cover, base, qpos, ins_len, ins_qstart)
+    lib.c3_normalize(q, t, nt, cover, base, qpos, ins_len, ins_qstart)
+    return AlignRecord(cover, base, qpos, ins_len, ins_qstart,
+                       int(j_start), int(j_end), 0)
+
+
+# ---------------- voting ----------------
+
+import threading
+
+_VOTE_TLS = threading.local()
+
+
+def _vote_arena(name, shape, dtype):
+    """Grow-only per-thread buffers (the vote pool calls this from 4
+    threads): fresh numpy allocations cost more in first-touch page
+    faults than the C vote itself."""
+    size = int(np.prod(shape))
+    store = getattr(_VOTE_TLS, "arenas", None)
+    if store is None:
+        store = _VOTE_TLS.arenas = {}
+    buf = store.get(name)
+    if buf is None or buf.size < size or buf.dtype != dtype:
+        buf = np.empty(int(size * 1.5) + 64, dtype=dtype)
+        store[name] = buf
+    return buf[:size].reshape(shape)
+
+
+def vote_consensus_c(nt: int, alns, qmin: int = 5):
+    """C fast path for consensus.vote.vote_consensus.  Returns
+    (codes, quals) or None if unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    N = len(alns)
+    cover = _vote_arena("cover", (N, nt), np.int8)
+    base = _vote_arena("base", (N, nt), np.int8)
+    qpos = _vote_arena("qpos", (N, nt), np.int32)
+    ins_len = _vote_arena("ins_len", (N, nt + 1), np.int32)
+    ins_qstart = _vote_arena("ins_qstart", (N, nt + 1), np.int32)
+    j_span = np.empty((N, 2), dtype=np.int32)
+    q_off = np.zeros(N + 1, dtype=np.int64)
+    qs_list, ql_list = [], []
+    for a, (rec, query, qual) in enumerate(alns):
+        cover[a] = rec.cover
+        base[a] = rec.base
+        qpos[a] = rec.qpos
+        ins_len[a] = rec.ins_len
+        ins_qstart[a] = rec.ins_qstart
+        j_span[a] = rec.j_start, rec.j_end
+        qs_list.append(np.asarray(query, dtype=np.int8))
+        ql_list.append(np.asarray(qual, dtype=np.int8))
+        q_off[a + 1] = q_off[a] + len(qs_list[-1])
+    queries = np.concatenate(qs_list) if qs_list else np.zeros(0, np.int8)
+    quals = np.concatenate(ql_list) if ql_list else np.zeros(0, np.int8)
+    queries = np.ascontiguousarray(queries, dtype=np.int8)
+    quals = np.ascontiguousarray(quals, dtype=np.int8)
+
+    cap = 2 * nt + 64
+    out_codes = _vote_arena("out_codes", (cap,), np.int8)
+    out_quals = _vote_arena("out_quals", (cap,), np.int8)
+    n = lib.c3_vote(N, nt, cover, base, qpos, ins_len, ins_qstart,
+                    np.ascontiguousarray(j_span.reshape(-1)),
+                    queries, quals, q_off, qmin,
+                    out_codes, out_quals, cap)
+    while n == -1:
+        cap *= 4
+        out_codes = _vote_arena("out_codes", (cap,), np.int8)
+        out_quals = _vote_arena("out_quals", (cap,), np.int8)
+        n = lib.c3_vote(N, nt, cover, base, qpos, ins_len, ins_qstart,
+                        np.ascontiguousarray(j_span.reshape(-1)),
+                        queries, quals, q_off, qmin,
+                        out_codes, out_quals, cap)
+    return out_codes[:n].copy(), out_quals[:n].copy()
+
+
+def vote_jobs_c(job_voters, drafts, draft_quals, qmin: int = 5,
+                nthreads: int = 4):
+    """Batched C vote across many jobs in one GIL-released call.
+
+    job_voters: list (per job) of lists of SubreadAln voters — WITHOUT
+    the draft, which is passed separately via drafts/draft_quals and
+    participates as the implicit extra voter (record_for_draft
+    semantics).  Returns a list of (codes, quals) per job, or None when
+    the library/symbol is unavailable.  Per-job buffer overflows
+    (consensus > 2*nt + 64, pathological) are re-voted through the
+    single-job path automatically.
+    """
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "c3_vote_jobs"):
+        return None
+    n_jobs = len(job_voters)
+    if n_jobs == 0:
+        return []
+
+    jv_off = np.zeros(n_jobs + 1, dtype=np.int64)
+    dr_off = np.zeros(n_jobs + 1, dtype=np.int64)
+    out_off = np.zeros(n_jobs + 1, dtype=np.int64)
+    covers, bases, qposs, ins_ls, ins_qs = [], [], [], [], []
+    jspans, queries, quals = [], [], []
+    for j, voters in enumerate(job_voters):
+        jv_off[j + 1] = jv_off[j] + len(voters)
+        nt = len(drafts[j])
+        dr_off[j + 1] = dr_off[j] + nt
+        out_off[j + 1] = out_off[j] + 2 * nt + 64
+        for rec, query, qual in voters:
+            covers.append(rec.cover)
+            bases.append(rec.base)
+            qposs.append(rec.qpos)
+            ins_ls.append(rec.ins_len)
+            ins_qs.append(rec.ins_qstart)
+            jspans.append(rec.j_start)
+            jspans.append(rec.j_end)
+            queries.append(query)
+            quals.append(qual)
+
+    def blob(parts, dtype):
+        if not parts:
+            return np.zeros(0, dtype=dtype)
+        return np.ascontiguousarray(np.concatenate(parts), dtype=dtype)
+
+    vnt = np.array([len(c) for c in covers], dtype=np.int64)
+    vnt_off = np.zeros(len(covers) + 1, dtype=np.int64)
+    np.cumsum(vnt, out=vnt_off[1:])
+    q_len = np.array([len(q) for q in queries], dtype=np.int64)
+    q_off = np.zeros(len(queries) + 1, dtype=np.int64)
+    np.cumsum(q_len, out=q_off[1:])
+
+    cover_b = blob(covers, np.int8)
+    base_b = blob(bases, np.int8)
+    qpos_b = blob(qposs, np.int32)
+    ins_l_b = blob(ins_ls, np.int32)
+    ins_q_b = blob(ins_qs, np.int32)
+    j_span = np.asarray(jspans, dtype=np.int32)
+    query_b = blob(queries, np.int8)
+    qual_b = blob(quals, np.int8)
+    draft_b = blob(list(drafts), np.int8)
+    draft_q_b = blob(list(draft_quals), np.int8)
+
+    total_out = int(out_off[-1])
+    out_codes = np.empty(total_out, dtype=np.int8)
+    out_quals = np.empty(total_out, dtype=np.int8)
+    out_lens = np.empty(n_jobs, dtype=np.int32)
+
+    lib.c3_vote_jobs(
+        n_jobs, jv_off, vnt_off, q_off, dr_off, out_off,
+        cover_b, base_b, qpos_b, ins_l_b, ins_q_b, j_span,
+        query_b, qual_b, draft_b, draft_q_b, qmin,
+        out_codes, out_quals, out_lens, nthreads)
+
+    results = []
+    for j in range(n_jobs):
+        n = int(out_lens[j])
+        if n < 0:
+            # overflow: re-vote this job alone with a growing buffer
+            from .consensus.vote import record_for_draft
+            alns = [record_for_draft(drafts[j], draft_quals[j])] \
+                + list(job_voters[j])
+            results.append(vote_consensus_c(len(drafts[j]), alns, qmin))
+            continue
+        a = int(out_off[j])
+        results.append((out_codes[a:a + n].copy(),
+                        out_quals[a:a + n].copy()))
+    return results
+
+
+# ---------------- POA fallback (divergence-routed reads) ----------------
+
+def poa_consensus_c(seqs, quals, match=5, mismatch=-4, gap_open=4,
+                    gap_ext=2):
+    """GIL-released scalar-C twin of ref.poa.poa_consensus (native/poa.c),
+    bit-identical tie-breaks.  Returns (codes, quals) or None when the
+    library/symbol is unavailable or the C side declines (DP cell cap /
+    pred-count cap / allocation failure) — callers fall back to the
+    numpy spec path."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "c3_poa_consensus"):
+        return None
+    n = len(seqs)
+    if n == 0:
+        return np.zeros(0, dtype=np.int8), np.zeros(0, dtype=np.int8)
+    lens = np.array([len(s) for s in seqs], dtype=np.int64)
+    total = int(lens.sum())
+    cat_s = np.empty(max(total, 1), dtype=np.int8)
+    cat_q = np.empty(max(total, 1), dtype=np.int8)
+    off = 0
+    for s, q in zip(seqs, quals):
+        cat_s[off:off + len(s)] = s
+        cat_q[off:off + len(s)] = q
+        off += len(s)
+    cap = total + 8
+    out_c = np.empty(cap, dtype=np.int8)
+    out_q = np.empty(cap, dtype=np.int8)
+    m = lib.c3_poa_consensus(cat_s, cat_q, lens, n,
+                             match, mismatch, gap_open, gap_ext,
+                             out_c, out_q, cap)
+    if m < 0:
+        return None
+    return out_c[:m].copy(), out_q[:m].copy()
+
+
+# ---------------- overlap ----------------
+
+def find_overlap_c(target: np.ndarray, query: np.ndarray, k: int = 15,
+                   band: int = 64, min_matches: int = 3):
+    """C fast path for consensus.overlap.find_overlap (exact same
+    algorithm and results).  Returns (r_st, r_en, q_st, q_en), None when
+    no overlap is found, or the string "unavailable" when the library
+    lacks the symbol (caller runs the numpy path)."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "c3_find_overlap"):
+        return "unavailable"
+    target = np.ascontiguousarray(target, dtype=np.int8)
+    query = np.ascontiguousarray(query, dtype=np.int8)
+    out4 = np.empty(4, dtype=np.int64)
+    r = lib.c3_find_overlap(target, len(target), query, len(query),
+                            k, band, min_matches, out4)
+    if r <= 0:
+        return "unavailable" if r < 0 else None
+    return int(out4[0]), int(out4[1]), int(out4[2]), int(out4[3])
+
+
+_SLIDE_CACHE: dict = {}
+
+
+def sliding_min_dists_c(seq: str, idx_seqs: tuple) -> "np.ndarray | None":
+    """C fast path: min sliding Levenshtein of every index against seq,
+    with the reference match_index's window truncation — its
+    position-outer loop breaks at the first index whose window overruns,
+    so index i only sees positions p <= len(seq) - max(len of indexes
+    listed up to i) (C3POa_postprocessing.py:269-278).  Returns (n_idx,)
+    int32 distances, or None when the library/symbol is unavailable or
+    an index exceeds the C DP width (the caller runs the Python path).
+    """
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "c3_sliding_min_dist_multi"):
+        return None
+    key = idx_seqs
+    cached = _SLIDE_CACHE.get(key)
+    if cached is None:
+        blob = np.frombuffer("".join(idx_seqs).encode(), dtype=np.uint8)
+        off = np.zeros(len(idx_seqs) + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in idx_seqs], out=off[1:])
+        # prefix max of index lengths, in file order
+        maxpref = np.maximum.accumulate(
+            np.array([len(s) for s in idx_seqs], dtype=np.int64))
+        lens = np.array([len(s) for s in idx_seqs], dtype=np.int64)
+        cached = _SLIDE_CACHE[key] = (np.ascontiguousarray(blob), off,
+                                      maxpref, lens)
+    blob, off, maxpref, lens = cached
+    s = np.frombuffer(seq.encode(), dtype=np.uint8)
+    # effective seq length per index: windows p <= n - maxpref[i]
+    n_eff = np.ascontiguousarray(len(s) - maxpref + lens)
+    out = np.empty(len(idx_seqs), dtype=np.int32)
+    lib.c3_sliding_min_dist_multi(np.ascontiguousarray(s), n_eff,
+                                  blob, off, len(idx_seqs), out)
+    if (out < 0).any():  # an index wider than the C DP row
+        return None
+    return out
+
+
+# ---------------- fastx ----------------
+
+def format_fastx(names: list, seqs: list, quals=None) -> "str | None":
+    """One GIL-released C call formats a whole group of records:
+    FASTA when ``quals`` is None (">name\\nSEQ\\n"), FASTQ otherwise
+    ("@name\\nSEQ\\n+\\nQUAL\\n", phred+33 clipped to 93).  Returns the
+    ascii text, or None when the library lacks the symbol."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "c3_format_fastx") or not names:
+        return None if names else ""
+    n = len(names)
+    # utf-8 in/out: the C formatter treats name bytes opaquely, so
+    # non-ASCII read headers pass through unchanged (byte lengths, not
+    # str lengths, drive the offsets)
+    name_bytes = [x.encode("utf-8") for x in names]
+    name_blob = np.frombuffer(b"".join(name_bytes), dtype=np.uint8)
+    name_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(x) for x in name_bytes], out=name_off[1:])
+    seq_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in seqs], out=seq_off[1:])
+    codes = np.ascontiguousarray(
+        np.concatenate(seqs) if n else np.zeros(0), dtype=np.int8)
+    mode = 0 if quals is None else 1
+    if mode:
+        qual_blob = np.ascontiguousarray(np.concatenate(quals),
+                                         dtype=np.int8)
+    else:
+        qual_blob = np.zeros(0, dtype=np.int8)
+    total_seq = int(seq_off[-1])
+    cap = int(name_off[-1]) + n * 6 + total_seq * (2 if mode else 1) + 16
+    out = np.empty(cap, dtype=np.uint8)
+    w = lib.c3_format_fastx(mode, np.ascontiguousarray(name_blob), name_off,
+                            codes, seq_off, qual_blob, n, out, cap)
+    if w < 0:
+        return None
+    return out[:w].tobytes().decode("utf-8")
+
+
+def parse_fastq_bytes(data: bytes):
+    """Parse a FASTQ buffer -> (names list[str], seq_arena int8,
+    qual_arena int8, offsets int64).  None if unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = np.frombuffer(data, dtype=np.uint8)
+    n = len(buf)
+    arena_cap = n
+    rec_cap = max(16, n // 64)
+    while True:
+        seq_arena = np.empty(arena_cap, dtype=np.int8)
+        qual_arena = np.empty(arena_cap, dtype=np.int8)
+        name_span = np.empty(2 * rec_cap, dtype=np.int64)
+        offs = np.empty(rec_cap + 1, dtype=np.int64)
+        r = lib.c3_parse_fastq(buf, n, seq_arena, qual_arena, arena_cap,
+                               name_span, offs, rec_cap)
+        if r == -2:
+            rec_cap *= 4
+            continue
+        if r < 0:
+            raise ValueError("malformed FASTQ")
+        names = [data[name_span[2 * i]:name_span[2 * i + 1]].decode("ascii")
+                 for i in range(r)]
+        return names, seq_arena, qual_arena, offs[:r + 1]
+
+
+# ---------------- scalar-C DP (baseline-bias probe) ----------------
+
+def dp_score_c(q: np.ndarray, t: np.ndarray, match=5, mismatch=-4,
+               gap_open=4, gap_ext=2, band=128, work=None):
+    """Banded semiglobal DP score via the scalar C routine
+    (native/dpbench.c); measures what reference-grade C achieves on this
+    host vs the numpy rows of ref/banded.py.  Returns (score, j_end) or
+    None when the library lacks the symbol."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "c3_dp_score"):
+        return None
+    q = np.ascontiguousarray(q, dtype=np.int8)
+    t = np.ascontiguousarray(t, dtype=np.int8)
+    nt = len(t)
+    if work is None:
+        work = [np.empty(nt + 1, dtype=np.int64) for _ in range(4)]
+    j_end = np.zeros(1, dtype=np.int64)
+    score = lib.c3_dp_score(q, len(q), t, nt, match, mismatch,
+                            gap_open, gap_ext, band,
+                            work[0], work[1], work[2], work[3], j_end)
+    return int(score), int(j_end[0])
+
+
+# ---------------- scalar-C full aligner (CPU backend hot path) ----------
+
+def align_and_trace_c(q: np.ndarray, t: np.ndarray, match=5, mismatch=-4,
+                      gap_open=4, gap_ext=2, band=128, normalize=True,
+                      with_edge=False):
+    """C fast path for ref.banded.align_and_trace: scalar-C banded
+    forward with band-local move bytes (native/align.c), then the C
+    traceback + homopolymer normalization (traceback.c).  Bit-identical
+    records to the numpy spec (tests/test_native.py); ~100x the numpy
+    rows — this is what makes the CPU proxy baseline C-grade
+    (BENCHMARKS.md).  Returns an AlignRecord or None when the library
+    lacks the symbol."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "c3_align_moves") or \
+            not hasattr(lib, "c3_traceback_edge"):
+        return None
+    from .ref.banded import AlignRecord
+
+    q = np.ascontiguousarray(q, dtype=np.int8)
+    t = np.ascontiguousarray(t, dtype=np.int8)
+    nq, nt = len(q), len(t)
+    # fresh buffers per call: allocation is ~us against a ~ms DP, and it
+    # keeps the routine trivially thread-safe
+    work = np.empty(4 * (nt + 1), dtype=np.int64)
+    moves = np.empty((nq, band), dtype=np.uint8)
+    j_end = ctypes.c_int32(0)
+    score = lib.c3_align_moves(q, nq, t, nt, match, mismatch,
+                               gap_open, gap_ext, band, moves, work,
+                               ctypes.byref(j_end))
+    if score <= -(2 ** 39):
+        return None  # unreachable band (nt > 3*nq): numpy path decides
+    nt32 = nt
+    cover = np.zeros(nt32, dtype=np.int8)
+    base = np.zeros(nt32, dtype=np.int8)
+    qpos = np.zeros(nt32, dtype=np.int32)
+    ins_len = np.zeros(nt32 + 1, dtype=np.int32)
+    ins_qstart = np.zeros(nt32 + 1, dtype=np.int32)
+    edge = ctypes.c_int32(0)
+    j_start = lib.c3_traceback_edge(
+        moves, nq, band, q, nq, nt, int(j_end.value),
+        cover, base, qpos, ins_len, ins_qstart, ctypes.byref(edge))
+    if normalize:
+        lib.c3_normalize(q, t, nt, cover, base, qpos, ins_len, ins_qstart)
+    rec = AlignRecord(cover, base, qpos, ins_len, ins_qstart,
+                      int(j_start), int(j_end.value), int(score))
+    if with_edge:
+        return rec, bool(edge.value)
+    return rec
+
+
+_ARENAS: dict = {}
+_ARENA_SLOT: int = 0
+_SLOT_LEASES: dict = {}       # slot -> lease token (an opaque int)
+_SLOT_LOCK = None             # lazy threading.Lock
+_LEASE_SEQ = 0
+
+
+class ArenaSlotCollision(RuntimeError):
+    """A record-arena slot was claimed while a previous generation's
+    records were still live (unreleased).  This is the silent-corruption
+    class the round-2 gi%2-under-multihost bug belonged to; the lease
+    guard turns it into a loud failure."""
+
+
+def _slot_lock():
+    global _SLOT_LOCK
+    if _SLOT_LOCK is None:
+        import threading
+        _SLOT_LOCK = threading.Lock()
+    return _SLOT_LOCK
+
+
+def claim_arena_slot(slot: int) -> int:
+    """Claim a record-arena generation; returns a lease token.
+
+    The pipelined runner claims slot = owned_group % 2 on its prepare
+    thread before building records, and releases the lease on the main
+    thread once the group's votes/writes have consumed them
+    (_finalize_group).  Claiming a slot whose previous lease is still
+    open means two live generations would share buffers — raise rather
+    than corrupt."""
+    global _LEASE_SEQ
+    slot = int(slot) & 1
+    with _slot_lock():
+        held = _SLOT_LEASES.get(slot)
+        if held is not None:
+            raise ArenaSlotCollision(
+                f"record-arena slot {slot} claimed while lease {held} is "
+                f"still open: two in-flight groups would share record "
+                f"buffers (double-buffer discipline violated)")
+        _LEASE_SEQ += 1
+        _SLOT_LEASES[slot] = _LEASE_SEQ
+        return _LEASE_SEQ
+
+
+def release_arena_slot(slot: int, lease: int) -> None:
+    """Release a lease taken by claim_arena_slot (idempotent per lease)."""
+    slot = int(slot) & 1
+    with _slot_lock():
+        if _SLOT_LEASES.get(slot) == lease:
+            del _SLOT_LEASES[slot]
+
+
+def reset_arena_leases() -> None:
+    """Clear every open record-arena lease.
+
+    Called from run_pipeline's cleanup after its executors have shut
+    down (no prepare/finalize work can still be in flight), so a run
+    that died mid-pipeline — RssRestartNeeded raised at a checkpoint
+    with preps queued, or any prep/finalize exception — doesn't leave
+    leases stuck in module globals and poison the next in-process run
+    with ArenaSlotCollision (ADVICE r3, medium)."""
+    with _slot_lock():
+        _SLOT_LEASES.clear()
+
+
+def set_arena_slot(slot: int) -> None:
+    """Select the record-arena generation (double buffering).
+
+    The pipelined runner builds group g+1's records on a worker thread
+    while group g's records (views into these arenas) are still being
+    voted on the main thread; rotating slot = g % 2 keeps the two
+    generations in disjoint buffers.  Call only from the (single)
+    prepare thread, before its align pass."""
+    global _ARENA_SLOT
+    _ARENA_SLOT = int(slot) & 1
+
+
+def ops_records_batch(qs, ts, ops, j_ends, packed: bool = False,
+                      phase: int = 0):
+    """Batched C record building + normalization for one device launch.
+
+    qs/ts: lists of int8 code arrays; ops: (n, L) uint8 walk ops
+    (2-bit packed, gapped, when ``packed``); j_ends: (n,) ints.  Returns
+    a list of normalized AlignRecords whose arrays are views into shared
+    arenas, or None when the symbol is missing.  One GIL-released C call
+    replaces n Python->C round trips.  ``phase`` selects an independent
+    arena family — callers issuing several batches whose records must
+    stay alive together (e.g. packed + unpacked ops encodings of one
+    group) give each batch its own phase.
+    """
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "c3_ops_records_batch"):
+        return None
+    from .ref.banded import AlignRecord
+
+    n = len(qs)
+    ops = np.ascontiguousarray(ops, dtype=np.uint8)
+    q_off = np.zeros(n + 1, dtype=np.int64)
+    t_off = np.zeros(n + 1, dtype=np.int64)
+    for r in range(n):
+        q_off[r + 1] = q_off[r] + len(qs[r])
+        t_off[r + 1] = t_off[r] + len(ts[r])
+    q_blob = np.ascontiguousarray(np.concatenate(qs), dtype=np.int8) \
+        if n else np.zeros(0, np.int8)
+    t_blob = np.ascontiguousarray(np.concatenate(ts), dtype=np.int8) \
+        if n else np.zeros(0, np.int8)
+    nt_off = t_off
+    nt1_off = t_off + np.arange(n + 1, dtype=np.int64)
+
+    total_nt = int(nt_off[n])
+    total_nt1 = int(nt1_off[n])
+    # grow-only arena reuse: fresh allocations cost ~0.75 s of first-touch
+    # page faults per 90 MB call, the C loop itself ~35 ms (measured).
+    # The records handed out are views — callers consume them before the
+    # next group's align call (single-threaded align path), so reuse is
+    # safe within the pipeline's group-at-a-time structure.
+    def arena(name, size, dtype):
+        key = (name, _ARENA_SLOT, phase)
+        buf = _ARENAS.get(key)
+        if buf is None or buf.size < size or buf.dtype != dtype:
+            buf = np.empty(int(size * 1.25), dtype=dtype)
+            _ARENAS[key] = buf
+        return buf[:size]
+
+    cover = arena("cover", total_nt, np.int8)
+    base = arena("base", total_nt, np.int8)
+    qpos = arena("qpos", total_nt, np.int32)
+    ins_len = arena("ins_len", total_nt1, np.int32)
+    ins_qstart = arena("ins_qstart", total_nt1, np.int32)
+    j_starts = np.empty(n, dtype=np.int32)
+    je = np.ascontiguousarray(j_ends, dtype=np.int32)
+
+    lib.c3_ops_records_batch(
+        ops, ops.shape[1] if ops.ndim == 2 else 0, n,
+        q_blob, q_off, t_blob, t_off, je,
+        cover, base, qpos, ins_len, ins_qstart, nt_off, nt1_off, j_starts,
+        1 if packed else 0)
+
+    out = []
+    for r in range(n):
+        a, b = int(nt_off[r]), int(nt_off[r + 1])
+        a1, b1 = int(nt1_off[r]), int(nt1_off[r + 1])
+        out.append(AlignRecord(cover[a:b], base[a:b], qpos[a:b],
+                               ins_len[a1:b1], ins_qstart[a1:b1],
+                               int(j_starts[r]), int(je[r]), 0))
+    return out

@@ -1,8 +1,8 @@
 """PyTorch compute backend (counterpart of
 ``c3poa_tpu/pipeline/tpu_backend.py``).
 
-Follows the backend contract of ``c3poa_tpu/pipeline/backend.py``, so
-``run_pipeline`` drives it unchanged:
+Follows the backend contract of this package's ``pipeline/backend.py``,
+so ``run_pipeline`` and ``run_postprocess`` drive it unchanged:
 
 - ``locate_many``: reads are sorted by length and batched through the
   fused locate step (``kernels/locate.py``: the splint-profile kernel,
@@ -13,6 +13,8 @@ Follows the backend contract of ``c3poa_tpu/pipeline/backend.py``, so
   first, through the banded forward kernel and the path-walk kernel
   (``kernels/banded.py``); the packed ops come back and native C builds
   the records.
+- ``adapter_hits``: reads are batched longest first through the
+  adapter-hits kernel (``kernels/adapters.py``) for postprocessing.
 
 Batching is this backend's own choice (no fixed compile shapes): a batch
 is padded only to its own longest member, and no output depends on how
@@ -26,29 +28,33 @@ import threading
 import numpy as np
 import torch
 
-from c3poa_tpu import native
-from c3poa_tpu.consensus.engine import (ConsensusParams, _pair_band,
-                                        serial_align_many)
-from c3poa_tpu.consensus.vote import SubreadAln
-from c3poa_tpu.pipeline.backend import LocateResult, NumpyBackend
-from c3poa_tpu.ref.banded import normalize_record
-from c3poa_tpu.ref.peaks import exact_peaks_from_profile
-from c3poa_tpu.utils import prof
-
+from .. import native
+from ..consensus.engine import (ConsensusParams, _pair_band,
+                                serial_align_many)
+from ..consensus.vote import SubreadAln
 from ..device import resolve_device
+from ..kernels.adapters import adapter_hits
 from ..kernels.banded import (SMAX, banded_align_trace, ops_to_record,
                               unpack_ops_packed)
 from ..kernels.locate import locate_device, profile_rows_combo
 from ..kernels.peaks import (margin_competitors_host, select_peaks_host,
                              tile_for_distance)
+from ..ref.banded import normalize_record
+from ..ref.peaks import exact_peaks_from_profile
 from ..state import splint_array, to_device
+from ..utils import prof
+from .backend import LocateResult, NumpyBackend
 
-# Reads longer than this take the exact host locate (NumpyBackend), as
-# reads beyond the JAX backend's largest length bucket do.
+# Reads longer than this take the exact host path (NumpyBackend) in
+# locate and adapter hits, as reads beyond the JAX backend's largest
+# length bucket do.
 MAX_READ_LEN = 131072
 # reads per locate launch and pairs per align launch
 MAX_LOCATE_BATCH = 512
 MAX_ALIGN_BATCH = 2048
+# reads per adapter launch: a postprocess group of 1000 reads is one
+# launch of 4000 blocks
+MAX_ADAPTER_BATCH = 1024
 # int32 profile elements (B * C * L) per locate launch: 256 MB
 LOCATE_BUDGET = 64 << 20
 # bytes of move words (P * nq * W / 2) per align launch
@@ -107,7 +113,7 @@ class TorchBackend:
         launches = []
         for chunk, R, lens in self._read_batches(
                 reads, [i for i, r in enumerate(reads)
-                        if len(r) <= MAX_READ_LEN], C):
+                        if len(r) <= MAX_READ_LEN], C, MAX_LOCATE_BATCH):
             prof.current.count("locate_launches")
             prof.current.count("locate_cells_padded", R.size * C)
             prof.current.count("locate_cells_real", int(lens.sum()) * C)
@@ -134,16 +140,16 @@ class TorchBackend:
                                 min_dist)
         return out
 
-    def _read_batches(self, reads, idxs, C):
+    def _read_batches(self, reads, idxs, C, cap):
         """Longest-first batches of the reads ``idxs``: yields (batch
         idxs, (B, L) int8 codes padded with 4, (B,) int32 lengths), L the
-        batch's longest read rounded up to 64, B within the batch cap and
+        batch's longest read rounded up to 64, B within ``cap`` and
         LOCATE_BUDGET."""
         order = sorted(idxs, key=lambda i: -len(reads[i]))
         start = 0
         while start < len(order):
             L = _round_up(len(reads[order[start]]), 64)
-            B = max(1, min(MAX_LOCATE_BATCH, LOCATE_BUDGET // (C * L)))
+            B = max(1, min(cap, LOCATE_BUDGET // (C * L)))
             chunk = order[start:start + B]
             start += B
             R = np.full((len(chunk), L), 4, dtype=np.int8)
@@ -166,7 +172,8 @@ class TorchBackend:
             prof.current.count("peaks_margin_host_rerun", len(margin_rerun))
         fetches = []
         for chunk, R, lens in self._read_batches(
-                reads, deep_rerun + margin_rerun, S.shape[0]):
+                reads, deep_rerun + margin_rerun, S.shape[0],
+                MAX_LOCATE_BATCH):
             combo = np.asarray([out[i].combo for i in chunk], dtype=np.int32)
             fetches.append((chunk, lens, profile_rows_combo(
                 self._to_dev(R), self._to_dev(lens), S,
@@ -181,9 +188,42 @@ class TorchBackend:
     # ---------------- adapters (postprocessing) ----------------
 
     def adapter_hits(self, reads, combo_codes, combo_lens):
-        raise NotImplementedError(
-            "TorchBackend.adapter_hits is not ported yet (ROADMAP.md, "
-            "queue 1 item 6: postprocess slice with adapter_hits_batch)")
+        """Best-two local hits with coordinates per (read, adapter
+        combo): six (B, C) int64 arrays (s1, j1, qe1, ts1, qs1, s2) equal
+        to ``NumpyBackend.adapter_hits``.  Like it, each combo runs over
+        its own codes (``combo_lens`` is their length).  Reads go longest
+        first through the adapter kernel (``kernels/adapters.py``), at
+        most MAX_ADAPTER_BATCH a launch; reads over MAX_READ_LEN take
+        the exact host path."""
+        B, C = len(reads), len(combo_codes)
+        outs = [np.zeros((B, C), dtype=np.int64) for _ in range(6)]
+        if not B or not C:
+            return outs
+        A = np.full((C, max(len(c) for c in combo_codes)), 4, dtype=np.int8)
+        for c, codes in enumerate(combo_codes):
+            A[c, :len(codes)] = codes
+        A = self._to_dev(A)
+        alens = self._to_dev(np.asarray([len(c) for c in combo_codes],
+                                        dtype=np.int32))
+        overlong = [i for i, r in enumerate(reads) if len(r) > MAX_READ_LEN]
+        if overlong:
+            host = NumpyBackend().adapter_hits(
+                [reads[i] for i in overlong], combo_codes, combo_lens)
+            for k in range(6):
+                outs[k][overlong] = host[k]
+        # dispatch every batch first, then materialize
+        launches = []
+        for chunk, R, lens in self._read_batches(
+                reads, [i for i, r in enumerate(reads)
+                        if len(r) <= MAX_READ_LEN], C,
+                MAX_ADAPTER_BATCH):
+            launches.append((chunk, adapter_hits(
+                self._to_dev(R), self._to_dev(lens), A, alens,
+                *NumpyBackend.ADAPTER_SCORING)))
+        for chunk, res in launches:
+            for k, x in enumerate(res):
+                outs[k][chunk] = x.cpu().numpy()
+        return outs
 
     # ---------------- align ----------------
 

@@ -8,15 +8,23 @@ repo's Python dependencies (no JAX needed or imported):
 
 1. prints the card and its power limit;
 2. builds the port's CUDA kernels from ``c3poa_tpu_torch/kernels/csrc``;
-3. runs each kernel and its plain torch version on the card, on the same
-   inputs at the shapes of the consensus run, requires every int32 output
-   to be equal, and times both with CUDA events;
-4. runs ``python -m c3poa_tpu_torch.cli --backend cuda`` in-process on
-   1000 simulated reads of the bench's shape, requires every kernel to
-   have launched during that run, and requires its output files to equal
-   the numpy backend's byte for byte;
-5. prints one JSON line with the kernels, the ``nvidia-smi`` line, and
-   last the ``{"ok": true, "device": ...}`` line.
+3. requires the port's native host library (built with gcc at first
+   use) to load;
+4. runs each kernel and its plain torch version on the card, on the same
+   inputs at the shapes of the consensus and postprocess runs, requires
+   every int32 output to be equal, and times both with CUDA events;
+5. runs ``python -m c3poa_tpu_torch.cli --backend cuda`` in-process on
+   1000 simulated reads of the bench's shape, requires the consensus
+   kernels to have launched during that run, and requires its output
+   files to equal the numpy backend's byte for byte;
+6. runs ``python -m c3poa_tpu_torch.cli_postprocess --backend cuda``
+   in-process on that run's consensus reads plus 1000 consensus-like
+   reads with adapters and oligo-dT indexes, requires the adapter kernel
+   to have launched during that run, and requires its output tree to
+   equal the numpy backend's byte for byte;
+7. prints one JSON line with the kernels (times, launches, and the
+   least time the card could take for the same work), the
+   ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result line, when there is no CUDA device,
 when the repo's packages are missing, or when any phase fails.  Work
@@ -36,6 +44,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 SEED = 0
 N_READS = 1000
+# consensus-like reads of the postprocess phases
+N_POST_READS = 1000
+
+# Peaks of one H100 SXM for the bound (the least time for the same
+# work): HBM at 3.35 TB/s (NVIDIA's data sheet); int32 issue at 64 INT32
+# lanes per SM (H100 white paper) x 132 SMs x 1.98 GHz, the boost clock
+# behind the data sheet's 67 TFLOP/s float32 figure.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# integer operations a DP cell (or walk step) needs, counted from the
+# recurrences: profile — substitution 2, diagonal and up 2, 3-way max 2,
+# run shift, max and unshift 3, column max 1; banded forward —
+# substitution 2, E 3 and its flag 1, D 1, Ht 1, F prefix 3 and its flag
+# 3, H 1, move source 3, nibble 2; walk — nibble decode 2, state and
+# source 4, i/j 2; adapters — substitution 2, diagonal with its fresh
+# payload 3, up 1, diagonal-or-up 3, floor 3, run shift, join and unshift
+# 5, column max with row and payload 4
+OPS_PER_CELL = {"start_profile_cuda": 10, "banded_fwd_cuda": 20,
+                "banded_walk_cuda": 8, "adapter_hits_cuda": 21}
 
 # the TPU kernel each CUDA kernel replaces
 KERNELS = {
@@ -45,7 +72,13 @@ KERNELS = {
                         "c3poa_tpu/kernels/pallas_banded.py:469"),
     "banded_walk_cuda": ("c3poa_tpu_torch/kernels/csrc/banded.cu",
                          "c3poa_tpu/kernels/banded.py:288"),
+    "adapter_hits_cuda": ("c3poa_tpu_torch/kernels/csrc/adapters.cu",
+                          "c3poa_tpu/kernels/adapters.py:35"),
 }
+# which run launches which kernel
+CONSENSUS_KERNELS = ("start_profile_cuda", "banded_fwd_cuda",
+                     "banded_walk_cuda")
+POST_KERNELS = ("adapter_hits_cuda",)
 OUTPUT_FILES = ("c3poa.log", "Splint1/R2C2_Consensus.fasta",
                 "Splint1/R2C2_Subreads.fastq")
 
@@ -74,6 +107,20 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the integer operations over the issue rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / INT32_OPS_PER_S * 1e3
+    if b_ms >= o_ms:
+        return dict(bound_ms=b_ms, bound_by="bytes")
+    return dict(bound_ms=o_ms, bound_by="operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def require_equal(name: str, got, want) -> int:
     """Exact equality of two tensors; returns max |got - want| (0)."""
     import torch
@@ -89,7 +136,7 @@ def require_equal(name: str, got, want) -> int:
 
 
 def make_dataset():
-    from c3poa_tpu import sim
+    from c3poa_tpu_torch import sim
     os.makedirs(WORK, exist_ok=True)
     reads, splints = sim.make_dataset(
         n_reads=N_READS, seed=SEED, insert_len=(500, 2000),
@@ -104,13 +151,13 @@ def phase_profile(dev, reads, splints, results):
     import numpy as np
     import torch
 
-    from c3poa_tpu.pipeline.backend import Combo
-    from c3poa_tpu.ref import sg
-    from c3poa_tpu.utils import encode, revcomp_encoded
     from c3poa_tpu_torch.kernels.smooth import smooth3_batch
     from c3poa_tpu_torch.kernels.sw_profile import (start_profile_batch,
                                                     start_profile_cuda)
+    from c3poa_tpu_torch.pipeline.backend import Combo
+    from c3poa_tpu_torch.ref import sg
     from c3poa_tpu_torch.state import splint_array, to_device
+    from c3poa_tpu_torch.utils import encode, revcomp_encoded
 
     B, L = 128, 32768
     codes = encode(next(iter(splints.values())))
@@ -132,11 +179,17 @@ def phase_profile(dev, reads, splints, results):
     ms = cuda_time_ms(lambda: start_profile_cuda(Rd, Sd, ld), 10)
     plain_ms = cuda_time_ms(lambda: start_profile_batch(Rd, Sd), 2)
     cells = B * S_np.shape[0] * L * S_np.shape[1]
+    # what this run's data needs: the splint's own rows over each read's
+    # own columns
+    need = int(lens.astype(np.int64).sum()) * S_np.shape[0] * len(codes)
+    bd = bound(nbytes(Rd, Sd, ld, got),
+               OPS_PER_CELL["start_profile_cuda"] * need)
     log(f"profile: B={B} C={S_np.shape[0]} L={L} m={S_np.shape[1]} exact; "
         f"kernel {ms:.3f} ms ({cells / ms / 1e6:.1f} G cells/s), "
-        f"plain {plain_ms:.3f} ms")
+        f"plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']}, {need} cells)")
     results["start_profile_cuda"] = dict(max_abs_err=err, ms=ms,
-                                         plain_ms=plain_ms)
+                                         plain_ms=plain_ms, **bd)
 
     # float32 smoothing on the card: against the CPU torch version, and
     # the f32-vs-f64 error the peak guards are calibrated against
@@ -166,8 +219,8 @@ def make_pairs(P: int, nq: int, rng):
     and a copy with 5% substitutions / 3% insertions / 3% deletions."""
     import numpy as np
 
-    from c3poa_tpu import sim
-    from c3poa_tpu.utils import encode
+    from c3poa_tpu_torch import sim
+    from c3poa_tpu_torch.utils import encode
     Q = np.full((P, nq), 4, dtype=np.int8)
     T = np.full((P, nq), 4, dtype=np.int8)
     ql = np.zeros(P, dtype=np.int32)
@@ -206,10 +259,13 @@ def phase_banded(dev, results):
     plain_ms = cuda_time_ms(
         lambda: banded_align_batch(Qd, Td, qld, tld, band=W), 1)
     cells = int(ql.astype(np.int64).sum()) * W
+    bd = bound(nbytes(Qd, Td, qld, tld, sc, je, mv),
+               OPS_PER_CELL["banded_fwd_cuda"] * cells)
     log(f"banded forward: P={P} nq={nq} W={W} exact; kernel {ms:.3f} ms "
-        f"({cells / ms / 1e6:.2f} G cells/s), plain {plain_ms:.3f} ms")
+        f"({cells / ms / 1e6:.2f} G cells/s), plain {plain_ms:.3f} ms, "
+        f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})")
     results["banded_fwd_cuda"] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms)
+                                      plain_ms=plain_ms, **bd)
 
     walk = banded_walk_cuda(mv, qld, tld, je, nq, W)
     walk0 = banded_walk_batch(mv, qld, tld, je, nq, W)
@@ -220,20 +276,99 @@ def phase_banded(dev, results):
     ms = cuda_time_ms(lambda: banded_walk_cuda(mv, qld, tld, je, nq, W), 5)
     plain_ms = cuda_time_ms(
         lambda: banded_walk_batch(mv, qld, tld, je, nq, W), 1)
-    log(f"banded walk: P={P} exact ({n_rem} pairs out of steps); kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # the path's steps (non-zero 2-bit ops) and at least one move word
+    # per 8 query rows of each path
+    ops = walk[2].to(torch.int32)
+    steps = int(sum(((ops >> (2 * k)) & 3 != 0).sum() for k in range(4)))
+    path_words = int((-(-ql.astype(np.int64) // 8)).sum()) * 4
+    bd = bound(nbytes(qld, tld, je, *walk) + path_words,
+               OPS_PER_CELL["banded_walk_cuda"] * steps)
+    log(f"banded walk: P={P} exact ({n_rem} pairs out of steps, {steps} "
+        f"steps); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     results["banded_walk_cuda"] = dict(max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms)
+                                       plain_ms=plain_ms, **bd)
+
+
+def consensus_like_reads(rng, n: int, indexes=None):
+    """``n`` postprocess inputs: cDNA of 500-2000 bases between the
+    default adapters, 1% errors, directions alternating; the i-th read
+    carries index i % 4 when ``indexes`` are given."""
+    from c3poa_tpu_torch import sim
+    out = []
+    for i in range(n):
+        idx = indexes[f"Index{i % 4 + 1}"] if indexes else None
+        name, seq, _ = sim.make_consensus_like(
+            rng, f"cl_{i}", cdna_len=int(rng.integers(500, 2001)),
+            index=idx, direction="+-"[i % 2], error=0.01)
+        out.append((name, seq))
+    return out
+
+
+def adapter_combos():
+    """The postprocess combos: each default adapter forward, then
+    reverse complemented (pipeline/postprocess.py's order)."""
+    from c3poa_tpu_torch import sim
+    from c3poa_tpu_torch.utils import encode, revcomp_encoded
+    combos = []
+    for seq in sim.DEFAULT_ADAPTERS.values():
+        combos += [encode(seq), revcomp_encoded(encode(seq))]
+    return combos
+
+
+def phase_adapters(dev, results):
+    """The adapter kernel at the postprocess shape: 1000 consensus-like
+    reads, C = 4 combos, L = the longest read rounded up to 64."""
+    import numpy as np
+    import torch
+
+    from c3poa_tpu_torch.kernels.adapters import (adapter_hits_batch,
+                                                  adapter_hits_cuda)
+    from c3poa_tpu_torch.pipeline.backend import NumpyBackend
+    from c3poa_tpu_torch.state import to_device
+    from c3poa_tpu_torch.utils import encode
+
+    reads = [encode(s) for _, s in consensus_like_reads(
+        np.random.default_rng(SEED + 3), N_POST_READS)]
+    combos = adapter_combos()
+    B, C = len(reads), len(combos)
+    L = -(-max(len(r) for r in reads) // 64) * 64
+    R = np.full((B, L), 4, dtype=np.int8)
+    lens = np.array([len(r) for r in reads], dtype=np.int32)
+    for b, r in enumerate(reads):
+        R[b, :len(r)] = r
+    m = max(len(c) for c in combos)
+    A = np.full((C, m), 4, dtype=np.int8)
+    for c, codes in enumerate(combos):
+        A[c, :len(codes)] = codes
+    alens = np.array([len(c) for c in combos], dtype=np.int32)
+    args = [to_device(x, dev) for x in (R, lens, A, alens)]
+    scoring = NumpyBackend.ADAPTER_SCORING
+    got = adapter_hits_cuda(*args, *scoring)
+    want = adapter_hits_batch(*args, *scoring)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("s1", "j1", "qe1", "ts1", "qs1", "s2"), got,
+                          want):
+        err = require_equal(f"adapter_hits_cuda {name}", a, b)
+    ms = cuda_time_ms(lambda: adapter_hits_cuda(*args, *scoring), 10)
+    plain_ms = cuda_time_ms(lambda: adapter_hits_batch(*args, *scoring), 1)
+    cells = int(lens.astype(np.int64).sum()) * int(alens.sum())
+    bd = bound(nbytes(*args, *got), OPS_PER_CELL["adapter_hits_cuda"] * cells)
+    log(f"adapters: B={B} C={C} L={L} m={m} exact; kernel {ms:.3f} ms "
+        f"({cells / ms / 1e6:.2f} G cells/s), plain {plain_ms:.3f} ms, "
+        f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, {cells} cells); "
+        f"s1 > 10 in {int((got[0] > 10).sum())} of {B * C}")
+    results["adapter_hits_cuda"] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, **bd)
 
 
 def phase_end_to_end(results):
     """The consensus run through the CLI on the card, then the numpy
     backend on the same reads; outputs must be byte-identical."""
-    from c3poa_tpu import native
-    from c3poa_tpu.pipeline.backend import NumpyBackend
-    from c3poa_tpu.pipeline.run import PipelineConfig, run_pipeline
     from c3poa_tpu_torch import cli
     from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.pipeline.backend import NumpyBackend
+    from c3poa_tpu_torch.pipeline.run import PipelineConfig, run_pipeline
 
     reads_fq = os.path.join(WORK, "reads.fastq")
     splint_fa = os.path.join(WORK, "splint.fasta")
@@ -241,7 +376,6 @@ def phase_end_to_end(results):
     out_np = os.path.join(WORK, "out_numpy")
     for d in (out_cuda, out_np):
         shutil.rmtree(d, ignore_errors=True)
-    log(f"native library available: {native.available()}")
 
     _build.reset_counts()
     t0 = time.time()
@@ -258,7 +392,7 @@ def phase_end_to_end(results):
     log("stages_s " + json.dumps(stats["stages_s"]))
     log("counters " + json.dumps(stats["counters"]))
     log("launches " + json.dumps(counts))
-    for name in KERNELS:
+    for name in CONSENSUS_KERNELS:
         if counts.get(name, 0) <= 0:
             raise SmokeFailure(f"{name} was not launched by the run")
         results[name]["launches"] = counts[name]
@@ -278,6 +412,114 @@ def phase_end_to_end(results):
         log(f"  {rel}: {len(a)} bytes, identical")
 
 
+def tree_bytes(root: str) -> dict:
+    """{relative path: bytes} of every output file under ``root``."""
+    tree = {}
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            if not f.startswith("."):
+                p = os.path.join(d, f)
+                tree[os.path.relpath(p, root)] = open(p, "rb").read()
+    return tree
+
+
+def phase_postprocess_end_to_end(results):
+    """The postprocess run through its CLI on the card, on the consensus
+    run's reads (no adapters: rejected) followed by consensus-like reads
+    with adapters and four oligo-dT indexes; then the numpy backend on
+    the same input.  The output trees must be byte-identical."""
+    import numpy as np
+
+    from c3poa_tpu_torch import cli_postprocess, sim
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.pipeline.backend import NumpyBackend
+    from c3poa_tpu_torch.pipeline.postprocess import (PostprocessConfig,
+                                                      run_postprocess)
+    from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
+
+    indexes = {f"Index{i}": sim.random_seq(np.random.default_rng(300 + i), 10)
+               for i in range(1, 5)}
+    cons = open(os.path.join(WORK, "out_cuda", "Splint1",
+                             "R2C2_Consensus.fasta")).read()
+    n_cons = cons.count(">")
+    post_in = os.path.join(WORK, "post_in.fasta")
+    adapters_fa = os.path.join(WORK, "adapters.fasta")
+    indexes_fa = os.path.join(WORK, "indexes.fasta")
+    with open(post_in, "w") as fh:
+        fh.write(cons)
+        for name, seq in consensus_like_reads(
+                np.random.default_rng(SEED + 2), N_POST_READS, indexes):
+            fh.write(f">{name}\n{seq}\n")
+    sim.write_fasta(adapters_fa, dict(sim.DEFAULT_ADAPTERS))
+    sim.write_fasta(indexes_fa, indexes)
+    n_in = n_cons + N_POST_READS
+    out_cuda = os.path.join(WORK, "post_cuda")
+    out_np = os.path.join(WORK, "post_numpy")
+    for d in (out_cuda, out_np):
+        shutil.rmtree(d, ignore_errors=True)
+
+    # stage times: the device stage (adapter hits, materialized on the
+    # host) against the rest (parse, hit extraction, demux, writes)
+    spent = []
+    device_stage = TorchBackend.adapter_hits
+
+    def timed(self, *args):
+        t = time.perf_counter()
+        res = device_stage(self, *args)
+        spent.append(time.perf_counter() - t)
+        return res
+
+    TorchBackend.adapter_hits = timed
+    try:
+        _build.reset_counts()
+        t0 = time.time()
+        rc = cli_postprocess.main(["-i", post_in, "-a", adapters_fa,
+                                   "-x", indexes_fa, "-o", out_cuda, "-t",
+                                   "--backend", "cuda"])
+        wall = time.time() - t0
+        counts = _build.launch_counts()
+    finally:
+        TorchBackend.adapter_hits = device_stage
+    if rc != 0:
+        raise SmokeFailure(f"cli_postprocess exited {rc}")
+    log(f"postprocess cuda: {n_in} reads ({n_cons} consensus + "
+        f"{N_POST_READS} consensus-like) in {wall:.3f} s = "
+        f"{n_in / wall:.3f} reads/s (wall incl. set-up)")
+    log(f"postprocess stages_s: adapter_hits {sum(spent):.3f} "
+        f"({len(spent)} groups: {', '.join(f'{x:.3f}' for x in spent)}), "
+        f"rest {wall - sum(spent):.3f}")
+    log("launches " + json.dumps(counts))
+    for name in POST_KERNELS:
+        if counts.get(name, 0) <= 0:
+            raise SmokeFailure(f"{name} was not launched by the run")
+        results[name]["launches"] = counts[name]
+
+    workers = os.cpu_count() or 1
+    t0 = time.time()
+    run_postprocess(post_in, out_np, adapters_fa, indexes_fa,
+                    PostprocessConfig(trim=True,
+                                      group_size=-(-n_in // workers),
+                                      threads=workers), NumpyBackend())
+    log(f"postprocess numpy arm: all {n_in} reads, {workers} workers, "
+        f"{time.time() - t0:.3f} s")
+    a, b = tree_bytes(out_cuda), tree_bytes(out_np)
+    if sorted(a) != sorted(b):
+        raise SmokeFailure(f"postprocess trees hold different files: "
+                           f"{sorted(a)} vs {sorted(b)}")
+    for rel in sorted(a):
+        if a[rel] != b[rel]:
+            raise SmokeFailure(f"postprocess {rel} differs from the numpy "
+                               f"backend's")
+        log(f"  {rel}: {len(a[rel])} bytes, identical")
+    if "R2C2_oligodT_multiplexing.tsv" not in a:
+        raise SmokeFailure("no R2C2_oligodT_multiplexing.tsv written")
+    written = sum(v.count(b">") for k, v in a.items()
+                  if k.endswith("R2C2_full_length_consensus_reads.fasta"))
+    log(f"postprocess wrote {written} of {n_in} reads")
+    if not written:
+        raise SmokeFailure("postprocess wrote no read")
+
+
 def main() -> int:
     try:
         import torch
@@ -290,6 +532,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
+        from c3poa_tpu_torch import native
         from c3poa_tpu_torch.device import resolve_device
         from c3poa_tpu_torch.kernels import _build
     except ImportError as exc:
@@ -307,33 +550,45 @@ def main() -> int:
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
     log(f"nvidia-smi: {smi}")
 
-    t0 = time.time()
-    built = _build.build_all()
-    log(f"kernels built in {time.time() - t0:.3f} s: {built}")
-    for lib, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {lib}: {line.strip()}")
-
     results = {k: {} for k in KERNELS}
     try:
+        t0 = time.time()
+        built = _build.build_all()
+        log(f"kernels built in {time.time() - t0:.3f} s: {built}")
+        for lib, text in _build.build_logs.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  {lib}: {line.strip()}")
+        t0 = time.time()
+        if not native.available():
+            raise SmokeFailure(f"the port's native library did not load: "
+                               f"{native.build_error}")
+        log(f"native library: {native.lib_path()} "
+            f"({time.time() - t0:.3f} s)")
         t0 = time.time()
         reads, splints = make_dataset()
         log(f"dataset: {len(reads)} reads in {time.time() - t0:.3f} s")
         phase_profile(dev, reads, splints, results)
         phase_banded(dev, results)
+        phase_adapters(dev, results)
         phase_end_to_end(results)
+        phase_postprocess_end_to_end(results)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    if "jax" in sys.modules:
-        print("chip_smoke: FAILED: jax was imported", file=sys.stderr)
+    leaked = sorted(k for k in sys.modules
+                    if k.split(".")[0] in ("jax", "c3poa_tpu"))
+    if leaked:
+        print(f"chip_smoke: FAILED: imported {leaked}", file=sys.stderr)
         return 1
 
+    # no PyTorch call computes these DPs: library_ms is null
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=results[k]["launches"],
                     max_abs_err=results[k]["max_abs_err"],
-                    ms=results[k]["ms"], plain_ms=results[k]["plain_ms"])
+                    ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
+                    bound_ms=results[k]["bound_ms"],
+                    bound_by=results[k]["bound_by"], library_ms=None)
                for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

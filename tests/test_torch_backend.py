@@ -11,10 +11,11 @@ from c3poa_tpu import sim
 from c3poa_tpu.consensus.engine import ConsensusParams, zero_params
 from c3poa_tpu.pipeline.backend import Combo, NumpyBackend
 from c3poa_tpu.pipeline.tpu_backend import TpuBackend
-from c3poa_tpu.utils import encode, prof, revcomp_encoded
+from c3poa_tpu.utils import encode, revcomp_encoded
 from c3poa_tpu_torch.kernels import peaks as tpk
 from c3poa_tpu_torch.pipeline import torch_backend as tbe
 from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
+from c3poa_tpu_torch.utils import prof
 
 torch.set_num_threads(1)
 
@@ -147,9 +148,3 @@ def test_output_does_not_depend_on_batching(located_reads, monkeypatch):
     b = _snap(small.align_many(pairs, p))
     assert prof.current.counts["align_launches"] >= 4
     _assert_same_records(a, b)
-
-
-def test_adapter_hits_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchBackend("cpu").adapter_hits([np.zeros(10, np.int8)],
-                                         [np.zeros(5, np.int8)], [5])

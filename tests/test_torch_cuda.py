@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain torch versions, on the
-card, at shapes and edge cases the consensus run rarely reaches: every
-band width the forward kernel is built for, both scorings, dummy and
-empty pairs, band shifts beyond SMAX, long splints and tile seams.
+card, at shapes and edge cases the consensus and postprocess runs rarely
+reach: every band width the forward kernel is built for, both scorings,
+dummy and empty pairs, band shifts beyond SMAX, long splints, tile seams,
+and the adapter hits' ties, dimers, N codes, short and empty reads.
 
 Needs a CUDA card and nvcc; skips without them.  This file imports no
 jax, so it runs on a machine without it:
@@ -15,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from c3poa_tpu import sim
-from c3poa_tpu.pipeline.backend import Combo
-from c3poa_tpu.utils import encode, revcomp_encoded
+from c3poa_tpu_torch import sim
+from c3poa_tpu_torch.pipeline.backend import Combo, NumpyBackend
+from c3poa_tpu_torch.utils import encode, revcomp_encoded
+from torch_adapter_cases import (ADAPTER_SETS, adapter_matrix, batch, combos,
+                                 edge_reads)
 
 pytestmark = pytest.mark.cuda
 
@@ -123,10 +126,16 @@ def test_kernel_wrappers_reject_what_they_cannot_take(dev):
         start_profile_cuda(Q[:, :40].contiguous(), S, lens)
     with pytest.raises(ValueError, match="int8"):
         start_profile_cuda(Q.to(torch.int32), S, lens)
+    from c3poa_tpu_torch.kernels.adapters import adapter_hits_cuda
+    alens = torch.full((1,), 32, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        adapter_hits_cuda(Q[:, :60].contiguous(), lens, S, alens, 1, -3, 3)
+    with pytest.raises(ValueError, match="exceed"):
+        adapter_hits_cuda(Q, lens, S, alens + 1, 1, -3, 3)
 
 
 def test_backend_on_card_matches_cpu(dev):
-    from c3poa_tpu.consensus.engine import ConsensusParams
+    from c3poa_tpu_torch.consensus.engine import ConsensusParams
     from c3poa_tpu_torch.kernels import _build
     from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
     reads, splints = sim.make_dataset(n_reads=6, seed=5,
@@ -157,3 +166,64 @@ def test_backend_on_card_matches_cpu(dev):
     for x, y in zip(ra, rb):
         for u, v in zip(x, y):
             np.testing.assert_array_equal(u, v)
+
+
+def _adapter_args(dev, reads, codes, extra=0, rows=0):
+    R, lens = batch(reads, 64, extra)
+    A, alens = adapter_matrix(codes, rows)
+    return [torch.from_numpy(x).to(dev) for x in (R, lens, A, alens)]
+
+
+@pytest.mark.parametrize("adapters", sorted(ADAPTER_SETS))
+@pytest.mark.parametrize("extra,rows", [(0, 0), (1100, 64)])
+def test_adapter_kernel_matches_plain(dev, adapters, extra, rows):
+    """Edge-case reads, also with padding columns past a tile (1024) and
+    padding adapter rows; the spec's outputs on the host."""
+    from c3poa_tpu_torch.kernels import adapters as ka
+    reads = edge_reads(seed=len(adapters))
+    codes = combos(ADAPTER_SETS[adapters])
+    args = _adapter_args(dev, reads, codes, extra, rows)
+    sc = NumpyBackend.ADAPTER_SCORING
+    got = ka.adapter_hits_cuda(*args, *sc)
+    want = ka.adapter_hits_batch(*args, *sc)
+    spec = NumpyBackend().adapter_hits(reads, codes, [len(c) for c in codes])
+    for name, a, b, c in zip("s1 j1 qe1 ts1 qs1 s2".split(), got, want,
+                             spec):
+        _same(a, b, name)
+        np.testing.assert_array_equal(a.cpu().numpy(), c, err_msg=name)
+
+
+@pytest.mark.parametrize("L,seed", [(0, 0), (1024, 1), (5000, 2),
+                                    (131072, 3)])
+def test_adapter_kernel_long_and_empty_reads(dev, L, seed):
+    """Tile seams (hits planted across 1024-column tiles), a read at the
+    backend's length limit, and an empty read beside them."""
+    from c3poa_tpu_torch.kernels import adapters as ka
+    rng = np.random.default_rng(seed)
+    codes = combos(ADAPTER_SETS["default"])
+    seq = list(sim.random_seq(rng, L))
+    a5 = sim.DEFAULT_ADAPTERS["5Prime_adapter"]
+    for at in (1000, 2040, 4990, L - len(a5)):
+        if 0 <= at <= L - len(a5):
+            seq[at:at + len(a5)] = a5
+    reads = [encode("".join(seq)), encode(""), encode(a5)]
+    args = _adapter_args(dev, reads, codes)
+    sc = NumpyBackend.ADAPTER_SCORING
+    got = ka.adapter_hits_cuda(*args, *sc)
+    want = ka.adapter_hits_batch(*args, *sc)
+    for name, a, b in zip("s1 j1 qe1 ts1 qs1 s2".split(), got, want):
+        _same(a, b, name)
+
+
+def test_adapter_backend_on_card_matches_numpy(dev):
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
+    reads = edge_reads(seed=9, n_random=40)
+    codes = combos(ADAPTER_SETS["default"])
+    lens = [len(c) for c in codes]
+    _build.reset_counts()
+    got = TorchBackend(dev).adapter_hits(reads, codes, lens)
+    assert _build.launch_counts().get("adapter_hits_cuda", 0) >= 1
+    want = NumpyBackend().adapter_hits(reads, codes, lens)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

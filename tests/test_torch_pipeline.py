@@ -9,8 +9,8 @@ import sys
 import pytest
 import torch
 
-from c3poa_tpu.pipeline.run import PipelineConfig, run_pipeline
 from c3poa_tpu_torch import cli
+from c3poa_tpu_torch.pipeline.run import PipelineConfig, run_pipeline
 from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
 
 torch.set_num_threads(1)
