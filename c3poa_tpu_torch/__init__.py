@@ -16,6 +16,11 @@ to its original.  The device half:
   (CUDA kernels in ``csrc/banded.cu`` + plain torch versions)
 - ``kernels.adapters`` — adapter hits for postprocessing (CUDA kernel
   ``csrc/adapters.cu`` + plain torch version)
+- ``kernels.probes`` — the two TPU probes' counterparts (CUDA kernels
+  ``csrc/int16_probe.cu`` and ``csrc/floor_probe.cu`` + plain torch
+  versions), run by ``tools.int16_probe`` and ``tools.floor_probe``
+- ``tools`` — the probes' entry points and copies of
+  ``c3poa_tpu/tools/`` (``make_example``, ``demux_nextera_tso``)
 - ``pipeline.torch_backend.TorchBackend`` — the backend object that
   ``run_pipeline`` and ``run_postprocess`` drive
 - ``cli`` / ``cli_postprocess`` — ``python -m c3poa_tpu_torch.cli`` and

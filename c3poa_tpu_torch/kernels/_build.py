@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,7 +33,7 @@ BUILD_DIR = os.path.join(
         __file__)))), "build", "c3poa_tpu_torch")
 # one library per source; never --use_fast_math (band_lo needs IEEE
 # f32 division and round-half-even, see csrc/band_lo.cuh)
-SOURCES = ("profile", "banded", "adapters")
+SOURCES = ("profile", "banded", "adapters", "int16_probe", "floor_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -44,6 +45,8 @@ SIGNATURES = {
     "banded": {"c3t_banded_fwd": [_P] * 7 + [_I] * 8 + [_P],
                "c3t_banded_walk": [_P] * 8 + [_I] * 5 + [_P]},
     "adapters": {"c3t_adapter_hits": [_P] * 6 + [_I] * 8 + [_P]},
+    "int16_probe": {"c3t_int16_probe": [_P] * 3 + [_I] + [_P]},
+    "floor_probe": {"c3t_floor_probe": [_P] * 2 + [_I] * 5 + [_P]},
 }
 
 _LOCK = threading.Lock()
@@ -144,6 +147,47 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = _I
             _LIBS[name] = lib
         return lib
+
+
+_SASS_FUNC = re.compile(r"Function\s*:\s*(\S+)")
+_SASS_INSN = re.compile(r"/\*([0-9a-fA-F]{4,})\*/\s+(.*?)\s*;")
+
+
+def sass(name: str) -> dict:
+    """The SASS of ``csrc/<name>.cu`` (``cuobjdump -sass`` on its built
+    library), as ``parse_sass`` gives it."""
+    load(name)
+    found = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_nvcc()), "cuobjdump")
+    return parse_sass(subprocess.run(
+        [found, "-sass", _lib_path(name)], check=True, capture_output=True,
+        text=True, timeout=120).stdout)
+
+
+def parse_sass(text: str) -> dict:
+    """``cuobjdump -sass`` output by kernel: {mangled name: [(address,
+    instruction), ...]}, the predicate kept (a branch names its target's
+    address: ``@P0 BRA 0x1b0``)."""
+    insns, func = {}, None
+    for line in text.splitlines():
+        m = _SASS_FUNC.search(line)
+        if m:
+            func = m.group(1)
+            insns[func] = []
+            continue
+        m = _SASS_INSN.search(line)
+        if m and func is not None:
+            insns[func].append((int(m.group(1), 16), m.group(2)))
+    return insns
+
+
+def sass_mnemonic(insn: str) -> str:
+    """The opcode of one SASS instruction, modifiers kept, predicate
+    dropped: ``@!P0 BRA 0x90`` -> ``BRA``."""
+    parts = insn.split()
+    if parts and parts[0].startswith("@"):
+        parts = parts[1:]
+    return parts[0] if parts else ""
 
 
 def require(t, dtype, ndim: int, name: str, device=None):

@@ -17,12 +17,18 @@ repo's Python dependencies (no JAX needed or imported):
    1000 simulated reads of the bench's shape, requires the consensus
    kernels to have launched during that run, and requires its output
    files to equal the numpy backend's byte for byte;
-6. runs ``python -m c3poa_tpu_torch.cli_postprocess --backend cuda``
+6. holds the two probe kernels (the counterparts of the TPU probes
+   ``tools/int16_probe.py`` and ``tools/mosaic_floor_probe.py``) to
+   their plain versions, then runs both probes' entry points in-process
+   (``c3poa_tpu_torch.tools.int16_probe``, which must exit 0 and prints
+   the SASS it compiled to, and ``.floor_probe 64 4096``, which prints
+   its table), each of which must launch its kernel;
+7. runs ``python -m c3poa_tpu_torch.cli_postprocess --backend cuda``
    in-process on that run's consensus reads plus 1000 consensus-like
    reads with adapters and oligo-dT indexes, requires the adapter kernel
    to have launched during that run, and requires its output tree to
    equal the numpy backend's byte for byte;
-7. prints one JSON line with the kernels (times, launches, and the
+8. prints one JSON line with the kernels (times, launches, and the
    least time the card could take for the same work), the
    ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}`` line.
 
@@ -53,6 +59,9 @@ N_POST_READS = 1000
 # behind the data sheet's 67 TFLOP/s float32 figure.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# one SM issues at most four warp instructions a clock (one per scheduler,
+# 128 lanes), over its ALU and FMA pipes together
+SM_LANE_OPS_PER_S = 4 * 32 * 1.98e9
 # integer operations a DP cell (or walk step) needs, counted from the
 # recurrences: profile — substitution 2, diagonal and up 2, 3-way max 2,
 # run shift, max and unshift 3, column max 1; banded forward —
@@ -60,9 +69,13 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # 3, H 1, move source 3, nibble 2; walk — nibble decode 2, state and
 # source 4, i/j 2; adapters — substitution 2, diagonal with its fresh
 # payload 3, up 1, diagonal-or-up 3, floor 3, run shift, join and unshift
-# 5, column max with row and payload 4
+# 5, column max with row and payload 4; int16 probe — max, roll, select
+# and add per column; floor probe — per (add, max) pair the fewest Hopper
+# instructions: one DPX VIADDMNMX does the add and the max, one more
+# negates (c - (x + c) is -x), on one SM by design
 OPS_PER_CELL = {"start_profile_cuda": 10, "banded_fwd_cuda": 20,
-                "banded_walk_cuda": 8, "adapter_hits_cuda": 21}
+                "banded_walk_cuda": 8, "adapter_hits_cuda": 21,
+                "int16_probe_cuda": 4, "floor_probe_cuda": 2}
 
 # the TPU kernel each CUDA kernel replaces
 KERNELS = {
@@ -74,11 +87,19 @@ KERNELS = {
                          "c3poa_tpu/kernels/banded.py:288"),
     "adapter_hits_cuda": ("c3poa_tpu_torch/kernels/csrc/adapters.cu",
                           "c3poa_tpu/kernels/adapters.py:35"),
+    "int16_probe_cuda": ("c3poa_tpu_torch/kernels/csrc/int16_probe.cu",
+                         "tools/int16_probe.py:34"),
+    "floor_probe_cuda": ("c3poa_tpu_torch/kernels/csrc/floor_probe.cu",
+                         "tools/mosaic_floor_probe.py:29"),
 }
 # which run launches which kernel
 CONSENSUS_KERNELS = ("start_profile_cuda", "banded_fwd_cuda",
                      "banded_walk_cuda")
 POST_KERNELS = ("adapter_hits_cuda",)
+# the floor probe's check: every mode at these S, M = 64 and a short loop
+# (the plain version launches 3 torch ops a pair)
+FLOOR_CHECK_S = (8, 256)
+FLOOR_CHECK_NITER = 16
 OUTPUT_FILES = ("c3poa.log", "Splint1/R2C2_Consensus.fasta",
                 "Splint1/R2C2_Subreads.fastq")
 
@@ -107,11 +128,12 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S
+          ) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the integer operations over the issue rate."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / INT32_OPS_PER_S * 1e3
+    o_ms = ops / ops_per_s * 1e3
     if b_ms >= o_ms:
         return dict(bound_ms=b_ms, bound_by="bytes")
     return dict(bound_ms=o_ms, bound_by="operations")
@@ -362,6 +384,76 @@ def phase_adapters(dev, results):
                                         plain_ms=plain_ms, **bd)
 
 
+def phase_probes(dev, results):
+    """The two probe kernels against their plain versions, then the
+    probes' entry points, each of which must launch its kernel: their
+    launches are the ones those runs make (no user path runs them)."""
+    import numpy as np
+    import torch
+
+    from c3poa_tpu_torch.kernels import _build, probes
+    from c3poa_tpu_torch.state import to_device
+    from c3poa_tpu_torch.tools import floor_probe, int16_probe
+
+    rng = np.random.default_rng(SEED + 4)
+    big = [rng.integers(-2 ** 15, 2 ** 15, (4096, 128)).astype(np.int16)
+           for _ in range(2)]
+    for x, y in (int16_probe.inputs(), big):
+        xd, yd = to_device(x, dev), to_device(y, dev)
+        got = probes.int16_probe_cuda(xd, yd)
+        want = probes.int16_probe_plain(xd, yd)
+        torch.cuda.synchronize()
+        err = require_equal(f"int16_probe_cuda {tuple(x.shape)}", got, want)
+    ms = cuda_time_ms(lambda: probes.int16_probe_cuda(xd, yd), 200)
+    plain_ms = cuda_time_ms(lambda: probes.int16_probe_plain(xd, yd), 50)
+    bd = bound(nbytes(xd, yd, got),
+               OPS_PER_CELL["int16_probe_cuda"] * got.numel())
+    log(f"int16 probe: (4096, 128) and the original's (16, 128) exact; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+    results["int16_probe_cuda"] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms, **bd)
+
+    M, niter = 64, FLOOR_CHECK_NITER
+    for S in FLOOR_CHECK_S:
+        xd = to_device(rng.integers(1, 7, (S, 128)).astype(np.int32), dev)
+        for mode in probes.FLOOR_CHAINS:
+            got = probes.floor_probe_cuda(xd, M, niter, mode)
+            want = probes.floor_probe_plain(xd, M, niter, mode)
+            torch.cuda.synchronize()
+            err = require_equal(f"floor_probe_cuda S={S} {mode}", got, want)
+    # timed at the largest S, one chain
+    ms = cuda_time_ms(lambda: probes.floor_probe_cuda(xd, M, niter, "chain"),
+                      20)
+    plain_ms = cuda_time_ms(
+        lambda: probes.floor_probe_plain(xd, M, niter, "chain"), 2)
+    pairs = M // 2 * niter * xd.numel()
+    bd = bound(nbytes(xd, got), OPS_PER_CELL["floor_probe_cuda"] * pairs,
+               SM_LANE_OPS_PER_S)
+    log(f"floor probe: S in {FLOOR_CHECK_S}, M={M}, NITER={niter}, every "
+        f"mode exact; chain at S={xd.shape[0]}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}"
+        f", one SM)")
+    results["floor_probe_cuda"] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms, **bd)
+
+    for name, tool, argv in (
+            ("int16_probe_cuda", int16_probe, ["--device", "cuda"]),
+            ("floor_probe_cuda", floor_probe, ["64", "4096"])):
+        _build.reset_counts()
+        t0 = time.time()
+        rc = tool.main(argv)
+        counts = _build.launch_counts()
+        log(f"{tool.__name__} {' '.join(argv)}: exit {rc} in "
+            f"{time.time() - t0:.3f} s; launches {json.dumps(counts)}")
+        if rc != 0:
+            raise SmokeFailure(f"{tool.__name__} exited {rc}")
+        if counts.get(name, 0) <= 0:
+            raise SmokeFailure(f"{name} was not launched by "
+                               f"{tool.__name__}")
+        results[name]["launches"] = counts[name]
+
+
 def phase_end_to_end(results):
     """The consensus run through the CLI on the card, then the numpy
     backend on the same reads; outputs must be byte-identical."""
@@ -571,6 +663,7 @@ def main() -> int:
         phase_profile(dev, reads, splints, results)
         phase_banded(dev, results)
         phase_adapters(dev, results)
+        phase_probes(dev, results)
         phase_end_to_end(results)
         phase_postprocess_end_to_end(results)
     except SmokeFailure as exc:
@@ -582,7 +675,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: imported {leaked}", file=sys.stderr)
         return 1
 
-    # no PyTorch call computes these DPs: library_ms is null
+    # no PyTorch call computes these DPs or probes: library_ms is null
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=results[k]["launches"],
                     max_abs_err=results[k]["max_abs_err"],

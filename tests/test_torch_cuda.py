@@ -2,7 +2,9 @@
 card, at shapes and edge cases the consensus and postprocess runs rarely
 reach: every band width the forward kernel is built for, both scorings,
 dummy and empty pairs, band shifts beyond SMAX, long splints, tile seams,
-and the adapter hits' ties, dimers, N codes, short and empty reads.
+the adapter hits' ties, dimers, N codes, short and empty reads, and the
+two probe kernels at the int16 extremes, every mode at the smallest and
+largest M they are built for, and int32 overflow.
 
 Needs a CUDA card and nvcc; skips without them.  This file imports no
 jax, so it runs on a machine without it:
@@ -227,3 +229,65 @@ def test_adapter_backend_on_card_matches_numpy(dev):
     want = NumpyBackend().adapter_hits(reads, codes, lens)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+def _int16_pair(rng, B):
+    """(B, 128) int16 inputs over the whole range, with both extremes
+    and 32767 where the max must wrap to -32768 after the + 1."""
+    x = rng.integers(-2 ** 15, 2 ** 15, (B, 128)).astype(np.int16)
+    y = rng.integers(-2 ** 15, 2 ** 15, (B, 128)).astype(np.int16)
+    x[:, 2::11] = -32768
+    y[:, 2::11] = -32768
+    y[:, 1::7] = -32768
+    x[:, ::5] = 32767
+    return x, y
+
+
+@pytest.mark.parametrize("B", [1, 16, 4096])
+def test_int16_probe_kernel_matches_plain(dev, B):
+    from c3poa_tpu_torch.kernels import probes
+    x, y = _int16_pair(np.random.default_rng(B), B)
+    xd, yd = (torch.from_numpy(a).to(dev) for a in (x, y))
+    got = probes.int16_probe_cuda(xd, yd)
+    want = probes.int16_probe_plain(xd, yd)
+    _same(got, want, "int16 probe")
+    assert (got.cpu().numpy()[:, 3::5] == -32768).all()   # 32767 + 1 wraps
+
+
+@pytest.mark.parametrize("mode", ["chain", "indep2", "indep4"])
+@pytest.mark.parametrize("M", [8, 128])
+@pytest.mark.parametrize("S", [8, 256])
+def test_floor_probe_kernel_matches_plain(dev, mode, M, S):
+    from c3poa_tpu_torch.kernels import probes
+    rng = np.random.default_rng(S + M)
+    x = torch.from_numpy(rng.integers(1, 7, (S, 128)).astype(np.int32))
+    xd = x.to(dev)
+    _same(probes.floor_probe_cuda(xd, M, 5, mode),
+          probes.floor_probe_plain(xd, M, 5, mode), "floor probe")
+
+
+@pytest.mark.parametrize("mode", ["chain", "indep4"])
+def test_floor_probe_kernel_wraps_as_int32(dev, mode):
+    """Values near 2**30: the adds overflow and wrap in both versions."""
+    from c3poa_tpu_torch.kernels import probes
+    rng = np.random.default_rng(7)
+    x = rng.integers(2 ** 29, 2 ** 30, (24, 128)).astype(np.int32)
+    xd = torch.from_numpy(x).to(dev)
+    _same(probes.floor_probe_cuda(xd, 16, 3, mode),
+          probes.floor_probe_plain(xd, 16, 3, mode), "floor probe wrap")
+
+
+def test_probe_wrappers_reject_what_they_cannot_take(dev):
+    from c3poa_tpu_torch.kernels import probes
+    x = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=r"\(8, 16, 32, 64, 128\)"):
+        probes.floor_probe_cuda(x, 24, 2, "chain")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        probes.floor_probe_cuda(x, 12, 2, "indep4")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        probes.floor_probe_cuda(x[:4].contiguous(), 8, 2, "chain")
+    h = torch.zeros((4, 64), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="128"):
+        probes.int16_probe_cuda(h, h)
+    with pytest.raises(ValueError, match="CUDA"):
+        probes.int16_probe_cuda(h.cpu(), h.cpu())

@@ -50,7 +50,7 @@ def _run(args, tmp_path):
 
 def test_cli_cpu_matches_jax_cli_numpy(tmp_path):
     d = str(tmp_path)
-    _run(["-m", "c3poa_tpu.tools.make_example", "-o", d, "-n", "8"],
+    _run(["-m", "c3poa_tpu_torch.tools.make_example", "-o", d, "-n", "8"],
          tmp_path)
     common = ["-r", os.path.join(d, "reads.fastq"),
               "-s", os.path.join(d, "splint.fasta"), "-g", "5"]

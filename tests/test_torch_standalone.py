@@ -77,6 +77,10 @@ import c3poa_tpu_torch.cli
 import c3poa_tpu_torch.cli_postprocess
 import c3poa_tpu_torch.pipeline.torch_backend
 import c3poa_tpu_torch.pipeline.postprocess
+import c3poa_tpu_torch.tools.demux_nextera_tso
+import c3poa_tpu_torch.tools.floor_probe
+import c3poa_tpu_torch.tools.int16_probe
+import c3poa_tpu_torch.tools.make_example
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split('.')[0] in ('jax', 'jaxlib', 'c3poa_tpu'))
@@ -85,8 +89,9 @@ print('leaked', bad)
 
 
 def test_entry_points_load_no_jax_package():
-    """In a fresh interpreter: the port's entry points and chip_smoke
-    leave no c3poa_tpu.* and no jax* module in sys.modules."""
+    """In a fresh interpreter: the port's entry points (the CLIs and the
+    tools) and chip_smoke leave no c3poa_tpu.* and no jax* module in
+    sys.modules."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c",
                         f"ROOT = {ROOT!r}\n" + NO_JAX_PACKAGE],
