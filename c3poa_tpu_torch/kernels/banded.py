@@ -208,8 +208,12 @@ def banded_fwd_cuda(queries: torch.Tensor, targets: torch.Tensor,
                     q_lens: torch.Tensor, t_lens: torch.Tensor,
                     band: int = 128, match: int = 5, mismatch: int = -4,
                     gap_open: int = 4, gap_ext: int = 2):
-    """Kernel 2: the forward pass on the card.  int8 queries/targets,
-    int32 lengths; same outputs as ``banded_align_batch``."""
+    """Kernel 2: the forward pass on the card.  int8 queries/targets
+    (codes 0-4), int32 lengths with q_lens <= nq and t_lens <= nt; same
+    outputs as ``banded_align_batch``.  The kernel writes every move
+    word, zero past each query, so the moves are allocated uncleared.
+    A target too wide for the kernel's shared-memory staging (4 bits a
+    base, 96 KB) is refused by the launch."""
     dev = queries.device
     _build.require(queries, torch.int8, 2, "queries")
     _build.require(targets, torch.int8, 2, "targets", dev)
@@ -222,12 +226,12 @@ def banded_fwd_cuda(queries: torch.Tensor, targets: torch.Tensor,
         raise ValueError("queries, targets and lengths disagree on P")
     if band not in CUDA_BANDS:
         raise ValueError(f"band {band} not in {CUDA_BANDS}")
-    if nt > 200 * 1024:
-        raise ValueError(f"target width {nt} exceeds the kernel's "
-                         f"shared-memory staging")
+    if not (-128 <= match <= 127 and -128 <= mismatch <= 127):
+        raise ValueError(f"match {match} and mismatch {mismatch} must fit "
+                         f"a signed byte (the kernel's substitution table)")
     score = torch.empty(P, dtype=torch.int32, device=dev)
     j_end = torch.empty(P, dtype=torch.int32, device=dev)
-    moves = torch.zeros((P, -(-nq // 8), band), dtype=torch.int32,
+    moves = torch.empty((P, -(-nq // 8), band), dtype=torch.int32,
                         device=dev)
     if P == 0:
         return score, j_end, moves
@@ -245,8 +249,8 @@ def banded_fwd_cuda(queries: torch.Tensor, targets: torch.Tensor,
 def banded_walk_cuda(moves: torch.Tensor, q_lens: torch.Tensor,
                      t_lens: torch.Tensor, j_end: torch.Tensor, nq: int,
                      band: int):
-    """Kernel 3: the walk on the card, one thread per pair; same
-    outputs as ``banded_walk_batch``."""
+    """Kernel 3: the walk on the card; same outputs as
+    ``banded_walk_batch``.  The kernel writes every word of ops."""
     dev = moves.device
     _build.require(moves, torch.int32, 3, "moves")
     for name, t in (("q_lens", q_lens), ("t_lens", t_lens),
@@ -256,12 +260,16 @@ def banded_walk_cuda(moves: torch.Tensor, q_lens: torch.Tensor,
     if W != band or nq8 != -(-nq // 8):
         raise ValueError(f"moves {tuple(moves.shape)} do not match nq = "
                          f"{nq}, band = {band}")
+    if band not in CUDA_BANDS:
+        raise ValueError(f"band {band} not in {CUDA_BANDS}")
+    if q_lens.shape[0] != P or t_lens.shape[0] != P or j_end.shape[0] != P:
+        raise ValueError("moves, lengths and j_end disagree on P")
     n_steps = walk_steps(nq, W)
     words = ops_bytes(n_steps) // 4
     j_start = torch.empty(P, dtype=torch.int32, device=dev)
     i_rem = torch.empty(P, dtype=torch.int32, device=dev)
     edge = torch.empty(P, dtype=torch.uint8, device=dev)
-    ops = torch.zeros((P, words), dtype=torch.int32, device=dev)
+    ops = torch.empty((P, words), dtype=torch.int32, device=dev)
     if P:
         lib = _build.load("banded")
         _build.count("banded_walk_cuda")

@@ -6,7 +6,11 @@ repo's TPU probes:
 - ``int16_probe``: packed int16 max / roll / select / add on the card
   (counterpart of ``tools/int16_probe.py``);
 - ``floor_probe``: the issue cost of dependent int32 operations on one
-  SM (counterpart of ``tools/mosaic_floor_probe.py``).
+  SM (counterpart of ``tools/mosaic_floor_probe.py``);
+- ``banded_sass``: SASS instructions a row of the banded forward kernel,
+  by pipe (needs nvcc and cuobjdump);
+- ``banded_chain``: the banded kernels on a batch and on one pair alone
+  (their chain floors) on the card.
 
 Each runs as ``python -m c3poa_tpu_torch.tools.<name>``; the probes run
 on the card unless ``--device cpu`` is passed.

@@ -12,7 +12,10 @@ repo's Python dependencies (no JAX needed or imported):
    use) to load;
 4. runs each kernel and its plain torch version on the card, on the same
    inputs at the shapes of the consensus and postprocess runs, requires
-   every int32 output to be equal, and times both with CUDA events;
+   every int32 output to be equal, and times both with CUDA events; the
+   banded forward and walk also at the zero-repeat scoring and the fast
+   band, with the forward's SASS instructions a row by pipe and the
+   walk's time for one pair alone;
 5. runs ``python -m c3poa_tpu_torch.cli --backend cuda`` in-process on
    1000 simulated reads of the bench's shape, requires the consensus
    kernels to have launched during that run, and requires its output
@@ -126,6 +129,19 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_time_once(fn):
+    """(fn(), its milliseconds on the card): one call, no warm-up; for
+    the plain versions that take seconds."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S
@@ -257,59 +273,112 @@ def make_pairs(P: int, nq: int, rng):
     return Q, T, ql, tl
 
 
-def phase_banded(dev, results):
-    """Kernels 2 and 3 at the align shape: P = 2048, nq = 2048, W = 128."""
-    import numpy as np
+# further (P, W, scoring) at which forward and walk are held to their
+# plain versions: the zero-repeat overlap scoring and the fast band; P is
+# small because the plain versions take seconds whatever P is
+BANDED_CHECKS = ((256, 128, (20, -7, 10, 5)), (256, 64, (5, -4, 4, 2)))
+
+
+def check_banded(Q, T, ql, tl, W, scoring):
+    """Forward and walk on the card against their plain versions, every
+    output equal.  Returns (forward outputs, walk outputs, {kernel:
+    dict(max_abs_err, plain_ms)}), the plain versions timed as they run
+    for the comparison."""
     import torch
 
     from c3poa_tpu_torch.kernels.banded import (banded_align_batch,
                                                 banded_fwd_cuda,
                                                 banded_walk_batch,
                                                 banded_walk_cuda)
+    nq = Q.shape[1]
+    kw = dict(band=W, match=scoring[0], mismatch=scoring[1],
+              gap_open=scoring[2], gap_ext=scoring[3])
+    what = f"W={W} scoring={scoring}"
+    fwd = banded_fwd_cuda(Q, T, ql, tl, **kw)
+    torch.cuda.synchronize()
+    fwd0, plain_f = cuda_time_once(
+        lambda: banded_align_batch(Q, T, ql, tl, **kw))
+    err_f = max(require_equal(f"banded_fwd_cuda {name} ({what})", a, b)
+                for name, a, b in zip(("score", "j_end", "moves"), fwd, fwd0))
+    walk = banded_walk_cuda(fwd[2], ql, tl, fwd[1], nq, W)
+    torch.cuda.synchronize()
+    walk0, plain_w = cuda_time_once(
+        lambda: banded_walk_batch(fwd0[2], ql, tl, fwd0[1], nq, W))
+    err_w = max(require_equal(f"banded_walk_cuda {name} ({what})", a, b)
+                for name, a, b in zip(("j_start", "i_rem", "ops", "edge"),
+                                      walk, walk0))
+    return fwd, walk, {
+        "banded_fwd_cuda": dict(max_abs_err=err_f, plain_ms=plain_f),
+        "banded_walk_cuda": dict(max_abs_err=err_w, plain_ms=plain_w)}
+
+
+def phase_banded(dev, results):
+    """Kernels 2 and 3 at the align shape: P = 2048, nq = 2048, W = 128;
+    then both at the other scoring and band of the consensus run; the
+    forward kernel's SASS instructions a row by pipe; the walk of one
+    pair alone (its chain floor)."""
+    import numpy as np
+    import torch
+
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.kernels.banded import (banded_fwd_cuda,
+                                                banded_walk_cuda)
     from c3poa_tpu_torch.state import to_device
+    from c3poa_tpu_torch.tools import banded_sass
 
     P, nq, W = 2048, 2048, 128
     Q, T, ql, tl = make_pairs(P, nq, np.random.default_rng(SEED + 1))
     Qd, Td, qld, tld = (to_device(a, dev) for a in (Q, T, ql, tl))
-    sc, je, mv = banded_fwd_cuda(Qd, Td, qld, tld, band=W)
-    sc0, je0, mv0 = banded_align_batch(Qd, Td, qld, tld, band=W)
-    torch.cuda.synchronize()
-    require_equal("banded_fwd_cuda score", sc, sc0)
-    require_equal("banded_fwd_cuda j_end", je, je0)
-    err = require_equal("banded_fwd_cuda moves", mv, mv0)
+    (sc, je, mv), walk, checked = check_banded(Qd, Td, qld, tld, W,
+                                               (5, -4, 4, 2))
     ms = cuda_time_ms(lambda: banded_fwd_cuda(Qd, Td, qld, tld, band=W), 5)
-    plain_ms = cuda_time_ms(
-        lambda: banded_align_batch(Qd, Td, qld, tld, band=W), 1)
+    plain_ms = checked["banded_fwd_cuda"]["plain_ms"]
     cells = int(ql.astype(np.int64).sum()) * W
     bd = bound(nbytes(Qd, Td, qld, tld, sc, je, mv),
                OPS_PER_CELL["banded_fwd_cuda"] * cells)
     log(f"banded forward: P={P} nq={nq} W={W} exact; kernel {ms:.3f} ms "
         f"({cells / ms / 1e6:.2f} G cells/s), plain {plain_ms:.3f} ms, "
         f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})")
-    results["banded_fwd_cuda"] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, **bd)
+    results["banded_fwd_cuda"] = dict(ms=ms, **checked["banded_fwd_cuda"],
+                                      **bd)
 
-    walk = banded_walk_cuda(mv, qld, tld, je, nq, W)
-    walk0 = banded_walk_batch(mv, qld, tld, je, nq, W)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("j_start", "i_rem", "ops", "edge"), walk, walk0):
-        err = require_equal(f"banded_walk_cuda {name}", a, b)
     n_rem = int((walk[1] > 0).sum())
     ms = cuda_time_ms(lambda: banded_walk_cuda(mv, qld, tld, je, nq, W), 5)
-    plain_ms = cuda_time_ms(
-        lambda: banded_walk_batch(mv, qld, tld, je, nq, W), 1)
+    plain_ms = checked["banded_walk_cuda"]["plain_ms"]
     # the path's steps (non-zero 2-bit ops) and at least one move word
     # per 8 query rows of each path
     ops = walk[2].to(torch.int32)
-    steps = int(sum(((ops >> (2 * k)) & 3 != 0).sum() for k in range(4)))
+    per_pair = sum(((ops >> (2 * k)) & 3 != 0).sum(dim=1) for k in range(4))
+    steps = int(per_pair.sum())
     path_words = int((-(-ql.astype(np.int64) // 8)).sum()) * 4
     bd = bound(nbytes(qld, tld, je, *walk) + path_words,
                OPS_PER_CELL["banded_walk_cuda"] * steps)
     log(f"banded walk: P={P} exact ({n_rem} pairs out of steps, {steps} "
         f"steps); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-    results["banded_walk_cuda"] = dict(max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms, **bd)
+    results["banded_walk_cuda"] = dict(ms=ms, **checked["banded_walk_cuda"],
+                                       **bd)
+
+    # the chain floor: the batch's longest path walked alone
+    p = int(per_pair.argmax())
+    one = [x[p:p + 1].contiguous() for x in (mv, qld, tld, je)]
+    ms1 = cuda_time_ms(lambda: banded_walk_cuda(*one, nq, W), 10)
+    log(f"banded walk, one pair alone (P=1, pair {p}, "
+        f"{int(per_pair[p])} steps): {ms1:.4f} ms = "
+        f"{ms1 * 1e6 / int(per_pair[p]):.1f} ns a step (the chain floor)")
+
+    for Pc, Wc, scoring in BANDED_CHECKS:
+        args = [x[:Pc].contiguous() for x in (Qd, Td, qld, tld)]
+        _, wk, _ = check_banded(*args, Wc, scoring)
+        log(f"banded forward and walk: P={Pc} nq={nq} W={Wc} scoring="
+            f"{scoring} exact ({int((wk[1] > 0).sum())} pairs out of "
+            f"steps, {int(wk[3].sum())} on a band edge)")
+
+    log(f"banded forward, W = {W}: SASS instructions a row and warp by "
+        f"pipe (shortest / longest path through the row loop / all of it)")
+    for line in banded_sass.format_row_pipes(
+            banded_sass.forward_row_pipes(_build.sass("banded"), W)):
+        log("  " + line)
 
 
 def consensus_like_reads(rng, n: int, indexes=None):
@@ -643,6 +712,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
 
     results = {k: {} for k in KERNELS}
+    t_start = time.time()
     try:
         t0 = time.time()
         built = _build.build_all()
@@ -660,12 +730,16 @@ def main() -> int:
         t0 = time.time()
         reads, splints = make_dataset()
         log(f"dataset: {len(reads)} reads in {time.time() - t0:.3f} s")
-        phase_profile(dev, reads, splints, results)
-        phase_banded(dev, results)
-        phase_adapters(dev, results)
-        phase_probes(dev, results)
-        phase_end_to_end(results)
-        phase_postprocess_end_to_end(results)
+        for phase, args in (
+                (phase_profile, (dev, reads, splints, results)),
+                (phase_banded, (dev, results)),
+                (phase_adapters, (dev, results)),
+                (phase_probes, (dev, results)),
+                (phase_end_to_end, (results,)),
+                (phase_postprocess_end_to_end, (results,))):
+            t0 = time.time()
+            phase(*args)
+            log(f"{phase.__name__}: {time.time() - t0:.3f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -683,6 +757,7 @@ def main() -> int:
                     bound_ms=results[k]["bound_ms"],
                     bound_by=results[k]["bound_by"], library_ms=None)
                for k, (src, rep) in KERNELS.items()]
+    log(f"chip_smoke: {time.time() - t_start:.3f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ from c3poa_tpu_torch.pipeline.backend import Combo, NumpyBackend
 from c3poa_tpu_torch.utils import encode, revcomp_encoded
 from torch_adapter_cases import (ADAPTER_SETS, adapter_matrix, batch, combos,
                                  edge_reads)
+from torch_banded_cases import ragged_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -116,6 +117,64 @@ def test_banded_kernels_match_plain(dev, W, scoring):
         _same(a, b, name)
 
 
+def _dirty_allocator(dev, nbytes):
+    """Leave garbage in the blocks the next torch.empty calls reuse."""
+    junk = [torch.full((max(n, 1),), 0x5a5a5a5a, dtype=torch.int32,
+                       device=dev) for n in (nbytes // 4, 4096, 64, 64, 64)]
+    torch.cuda.synchronize()
+    del junk
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+@pytest.mark.parametrize("scoring", [(5, -4, 4, 2), (20, -7, 10, 5)])
+def test_banded_kernels_ragged_pairs(dev, W, scoring):
+    """The CPU tests' ragged pairs on the card: 15 pairs (no multiple of
+    the warps in a block), a query width that is no multiple of 8, and
+    output buffers that held garbage before the launch (rows past each
+    query and ops past each path must come back zero)."""
+    from c3poa_tpu_torch.kernels import banded as tb
+    Q, T, ql, tl, names = ragged_pairs(W, seed=W)
+    assert len(names) % 4 and Q.shape[1] % 8
+    args = [torch.from_numpy(x).to(dev) for x in (Q, T, ql, tl)]
+    mt, mm, go, ge = scoring
+    kw = dict(band=W, match=mt, mismatch=mm, gap_open=go, gap_ext=ge)
+    want = tb.banded_align_batch(*args, **kw)
+    nq = Q.shape[1]
+    wp = tb.banded_walk_batch(want[2], args[2], args[3], want[1], nq, W)
+    _dirty_allocator(dev, want[2].numel() * 4)
+    got = tb.banded_fwd_cuda(*args, **kw)
+    for name, a, b in zip(("score", "j_end", "moves"), got, want):
+        _same(a, b, name)
+    _dirty_allocator(dev, wp[2].numel())
+    wk = tb.banded_walk_cuda(got[2], args[2], args[3], got[1], nq, W)
+    for name, a, b in zip(("j_start", "i_rem", "ops", "edge"), wk, wp):
+        _same(a, b, name)
+    assert bool((wp[1] > 0).any()) and bool((wp[1] == 0).any())
+
+
+@pytest.mark.parametrize("P,nq", [(1, 40), (5, 33), (131, 64), (7, 8)])
+def test_banded_kernels_odd_batches(dev, P, nq):
+    """P below, at no multiple of and above a block's warps; nq no
+    multiple of 32."""
+    from c3poa_tpu_torch.kernels import banded as tb
+    rng = np.random.default_rng(P)
+    shapes = [(int(rng.integers(0, nq + 1)), int(rng.integers(0, 2 * nq)))
+              for _ in range(P)]
+    shapes[0] = (nq, 2 * nq - 1)
+    Q, T, ql, tl = _pairs(rng, P, 64, shapes)
+    args = [torch.from_numpy(x).to(dev) for x in (Q, T, ql, tl)]
+    want = tb.banded_align_batch(*args, band=64)
+    _dirty_allocator(dev, want[2].numel() * 4)
+    got = tb.banded_fwd_cuda(*args, band=64)
+    for name, a, b in zip(("score", "j_end", "moves"), got, want):
+        _same(a, b, name)
+    nq_ = Q.shape[1]
+    wk = tb.banded_walk_cuda(got[2], args[2], args[3], got[1], nq_, 64)
+    wp = tb.banded_walk_batch(want[2], args[2], args[3], want[1], nq_, 64)
+    for name, a, b in zip(("j_start", "i_rem", "ops", "edge"), wk, wp):
+        _same(a, b, name)
+
+
 def test_kernel_wrappers_reject_what_they_cannot_take(dev):
     from c3poa_tpu_torch.kernels import banded as tb
     from c3poa_tpu_torch.kernels.sw_profile import start_profile_cuda
@@ -123,6 +182,13 @@ def test_kernel_wrappers_reject_what_they_cannot_take(dev):
     lens = torch.full((2,), 64, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="band"):
         tb.banded_fwd_cuda(Q, Q, lens, lens, band=96)
+    with pytest.raises(ValueError, match="signed byte"):
+        tb.banded_fwd_cuda(Q, Q, lens, lens, band=64, match=200)
+    mv = torch.zeros((2, 8, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="do not match"):
+        tb.banded_walk_cuda(mv, lens, lens, lens, 64, 128)
+    with pytest.raises(ValueError, match="disagree on P"):
+        tb.banded_walk_cuda(mv, lens[:1], lens, lens, 64, 64)
     S = torch.full((1, 32), 4, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="multiple of 16"):
         start_profile_cuda(Q[:, :40].contiguous(), S, lens)

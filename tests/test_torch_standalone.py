@@ -77,6 +77,8 @@ import c3poa_tpu_torch.cli
 import c3poa_tpu_torch.cli_postprocess
 import c3poa_tpu_torch.pipeline.torch_backend
 import c3poa_tpu_torch.pipeline.postprocess
+import c3poa_tpu_torch.tools.banded_sass
+import c3poa_tpu_torch.tools.banded_chain
 import c3poa_tpu_torch.tools.demux_nextera_tso
 import c3poa_tpu_torch.tools.floor_probe
 import c3poa_tpu_torch.tools.int16_probe
