@@ -9,8 +9,11 @@ loaded with ``ctypes``: pointers and the CUDA stream go in as
 ``c_void_p``, and every C entry point returns ``cudaGetLastError()``,
 which ``check`` raises on.
 
-Launch counts: each wrapper calls ``count(name)`` where it launches its
-kernel and nowhere else.  ``run_pipeline`` calls locate and align from
+Every launch goes through ``launch``, which makes the tensor's device
+current around the C call and passes that device's current stream: a
+``<<<>>>`` launch runs on the current device, which must own the
+stream.  Launch counts: ``launch`` counts each kernel where it launches
+it and nowhere else.  ``run_pipeline`` calls locate and align from
 two host threads, so the counters sit behind a lock.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -44,7 +47,7 @@ SIGNATURES = {
     "profile": {"c3t_start_profile": [_P] * 4 + [_I] * 8 + [_P]},
     "banded": {"c3t_banded_fwd": [_P] * 7 + [_I] * 8 + [_P],
                "c3t_banded_walk": [_P] * 8 + [_I] * 5 + [_P]},
-    "adapters": {"c3t_adapter_hits": [_P] * 6 + [_I] * 8 + [_P]},
+    "adapters": {"c3t_adapter_hits": [_P] * 7 + [_I] * 8 + [_P]},
     "int16_probe": {"c3t_int16_probe": [_P] * 3 + [_I] + [_P]},
     "floor_probe": {"c3t_floor_probe": [_P] * 2 + [_I] * 5 + [_P]},
 }
@@ -139,14 +142,21 @@ def load(name: str) -> ctypes.CDLL:
             job = _start(name)
             if job is not None:
                 _finish(name, job)
-            lib = ctypes.CDLL(_lib_path(name))
-            lib.c3t_error_string.argtypes = [_I]
-            lib.c3t_error_string.restype = ctypes.c_char_p
-            for fn, args in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = args
-                getattr(lib, fn).restype = _I
+            lib = bind(ctypes.CDLL(_lib_path(name)), SIGNATURES[name])
             _LIBS[name] = lib
         return lib
+
+
+def bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
+    """Declare the C entry points of a loaded kernel library: {name:
+    argument types}, each returning a CUDA error code, and its error
+    string."""
+    lib.c3t_error_string.argtypes = [_I]
+    lib.c3t_error_string.restype = ctypes.c_char_p
+    for fn, args in signatures.items():
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = _I
+    return lib
 
 
 _SASS_FUNC = re.compile(r"Function\s*:\s*(\S+)")
@@ -208,6 +218,20 @@ def stream_of(t) -> int:
     """Handle of the calling thread's current stream on ``t``'s device."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(lib, entry: str, what: str, t, *args) -> None:
+    """Call the C entry point ``entry`` of ``lib`` (``csrc/<lib>.cu`` by
+    name, or a library ``bind`` declared) with ``args`` and the current
+    stream of ``t``'s device, that device being current; count the launch
+    as ``what`` and raise on a CUDA error."""
+    import torch
+    if isinstance(lib, str):
+        lib = load(lib)
+    with torch.cuda.device(t.device):
+        count(what)
+        rc = getattr(lib, entry)(*args, stream_of(t))
+    check(lib, rc, what)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -49,10 +49,14 @@ from .sw_profile import substitution
 
 NEG = -(2 ** 30)
 # limits of csrc/adapters.cuh: the (t_start, q_start) payload packs into
-# one 32-bit word (18 + 14 bits), and the per-row tile boundary of each
-# adapter row sits in shared memory
+# one 32-bit word (18 + 14 bits), and a column's maximum and its adapter
+# row share one (13 + 13 bits)
 MAX_COLUMNS = (1 << 18) - 1
 MAX_ADAPTER_LEN = 4096
+MAX_SCORE = (1 << 13) - 1
+# rows one pass of the kernel's warp covers (32 lanes, 2 rows a lane); a
+# longer combo hands its last row to the next pass through a carry row
+PASS_ROWS = 64
 
 
 def adapter_hits_batch(reads: torch.Tensor, lens: torch.Tensor,
@@ -141,9 +145,8 @@ def adapter_hits_batch(reads: torch.Tensor, lens: torch.Tensor,
 def adapter_hits_cuda(reads: torch.Tensor, lens: torch.Tensor,
                       adapters: torch.Tensor, adapter_lens: torch.Tensor,
                       match: int, mismatch: int, gap: int):
-    """The kernel (``csrc/adapters.cu``).  reads (B, L) int8 pad 4 with
-    L % 8 == 0; the other arguments as ``adapter_hits_batch``, whose
-    outputs it equals exactly."""
+    """The kernel (``csrc/adapters.cu``).  The arguments as
+    ``adapter_hits_batch``, whose outputs it equals exactly."""
     dev = reads.device
     _build.require(reads, torch.int8, 2, "reads")
     _build.require(lens, torch.int32, 1, "lens", dev)
@@ -154,30 +157,30 @@ def adapter_hits_cuda(reads: torch.Tensor, lens: torch.Tensor,
     if lens.shape[0] != B or adapter_lens.shape[0] != C:
         raise ValueError("lens / adapter_lens disagree with reads / "
                          "adapters")
-    if L % 8 or L > MAX_COLUMNS:
-        raise ValueError(f"L = {L} must be a multiple of 8 and at most "
-                         f"{MAX_COLUMNS}")
+    if L > MAX_COLUMNS:
+        raise ValueError(f"L = {L} is over {MAX_COLUMNS}")
     if m > MAX_ADAPTER_LEN:
         raise ValueError(f"adapter width {m} > {MAX_ADAPTER_LEN}")
-    if B > 65535:
-        raise ValueError(f"{B} reads in one launch: at most 65535")
-    if reads.data_ptr() % 8:
-        raise ValueError("reads must be 8-byte aligned (8-column loads)")
+    if not (-128 <= match <= 127 and -128 <= mismatch <= 127) or gap < 0:
+        raise ValueError(f"match {match} and mismatch {mismatch} must fit "
+                         f"a signed byte and gap {gap} be >= 0")
+    if max(match, 0) * m > MAX_SCORE:
+        raise ValueError(f"scores up to {match} * {m} exceed {MAX_SCORE}")
     if C and int(adapter_lens.max()) > m:
         raise ValueError(f"adapter_lens exceed the adapter width {m}")
     out = torch.empty((6, B, C), dtype=torch.int32, device=dev)
     if B and C:
-        # per-column (colmax, t_start) of each (read, combo) for the s2
-        # epilogue
-        scratch = torch.empty((B, C, L, 2), dtype=torch.int32, device=dev)
-        lib = _build.load("adapters")
-        _build.count("adapter_hits_cuda")
-        rc = lib.c3t_adapter_hits(
+        # one word a (read, combo, column) for the s2 reduction, written
+        # and read at each read's own columns only
+        scratch = torch.empty((B, C, L), dtype=torch.int32, device=dev)
+        carry = torch.empty((B, C, L, 4) if m > PASS_ROWS else (0,),
+                            dtype=torch.int32, device=dev)
+        _build.launch(
+            "adapters", "c3t_adapter_hits", "adapter_hits_cuda", reads,
             reads.data_ptr(), lens.data_ptr(), adapters.data_ptr(),
-            adapter_lens.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            B, L, C, m, match, mismatch, gap, ADAPTER_OVERLAP_TOL,
-            _build.stream_of(reads))
-        _build.check(lib, rc, "adapter_hits_cuda")
+            adapter_lens.data_ptr(), scratch.data_ptr(),
+            carry.data_ptr() if carry.numel() else None, out.data_ptr(),
+            B, L, C, m, match, mismatch, gap, ADAPTER_OVERLAP_TOL)
     return tuple(out.unbind(0))
 
 

@@ -37,6 +37,11 @@ SMAX = 3
 OP_NONE, OP_DIAG, OP_INS, OP_DEL = 0, 1, 2, 3
 # band widths csrc/banded.cu is instantiated for (W / 32 columns a lane)
 CUDA_BANDS = (32, 64, 128, 256)
+# the forward stages each pair's target in shared memory, 4 bits a base,
+# in max(nt + 1, W) / 8 + 2 words (csrc/banded.cuh:bnd_target_words)
+# under csrc/banded.cu's FWD_SHARED_BYTES: the widest target row it takes
+FWD_SHARED_BYTES = 96 * 1024
+FWD_MAX_TARGET = (FWD_SHARED_BYTES // 4 - 2) * 8 + 6
 
 
 def band_starts_np(nq: int, nt: int, band: int) -> np.ndarray:
@@ -212,8 +217,8 @@ def banded_fwd_cuda(queries: torch.Tensor, targets: torch.Tensor,
     (codes 0-4), int32 lengths with q_lens <= nq and t_lens <= nt; same
     outputs as ``banded_align_batch``.  The kernel writes every move
     word, zero past each query, so the moves are allocated uncleared.
-    A target too wide for the kernel's shared-memory staging (4 bits a
-    base, 96 KB) is refused by the launch."""
+    A target row wider than ``FWD_MAX_TARGET`` (the kernel's
+    shared-memory staging) is refused."""
     dev = queries.device
     _build.require(queries, torch.int8, 2, "queries")
     _build.require(targets, torch.int8, 2, "targets", dev)
@@ -226,6 +231,8 @@ def banded_fwd_cuda(queries: torch.Tensor, targets: torch.Tensor,
         raise ValueError("queries, targets and lengths disagree on P")
     if band not in CUDA_BANDS:
         raise ValueError(f"band {band} not in {CUDA_BANDS}")
+    if nt > FWD_MAX_TARGET:
+        raise ValueError(f"target width {nt} > {FWD_MAX_TARGET}")
     if not (-128 <= match <= 127 and -128 <= mismatch <= 127):
         raise ValueError(f"match {match} and mismatch {mismatch} must fit "
                          f"a signed byte (the kernel's substitution table)")
@@ -235,14 +242,12 @@ def banded_fwd_cuda(queries: torch.Tensor, targets: torch.Tensor,
                         device=dev)
     if P == 0:
         return score, j_end, moves
-    lib = _build.load("banded")
-    _build.count("banded_fwd_cuda")
-    rc = lib.c3t_banded_fwd(
+    _build.launch(
+        "banded", "c3t_banded_fwd", "banded_fwd_cuda", queries,
         queries.data_ptr(), targets.data_ptr(), q_lens.data_ptr(),
         t_lens.data_ptr(), score.data_ptr(), j_end.data_ptr(),
         moves.data_ptr(), P, nq, nt, band, match, mismatch, gap_open,
-        gap_ext, _build.stream_of(queries))
-    _build.check(lib, rc, "banded_fwd_cuda")
+        gap_ext)
     return score, j_end, moves
 
 
@@ -271,14 +276,11 @@ def banded_walk_cuda(moves: torch.Tensor, q_lens: torch.Tensor,
     edge = torch.empty(P, dtype=torch.uint8, device=dev)
     ops = torch.empty((P, words), dtype=torch.int32, device=dev)
     if P:
-        lib = _build.load("banded")
-        _build.count("banded_walk_cuda")
-        rc = lib.c3t_banded_walk(
+        _build.launch(
+            "banded", "c3t_banded_walk", "banded_walk_cuda", moves,
             moves.data_ptr(), q_lens.data_ptr(), t_lens.data_ptr(),
             j_end.data_ptr(), j_start.data_ptr(), i_rem.data_ptr(),
-            edge.data_ptr(), ops.data_ptr(), P, nq8, W, n_steps, words,
-            _build.stream_of(moves))
-        _build.check(lib, rc, "banded_walk_cuda")
+            edge.data_ptr(), ops.data_ptr(), P, nq8, W, n_steps, words)
     return j_start, i_rem, ops.view(torch.uint8), edge.to(torch.bool)
 
 

@@ -56,11 +56,8 @@ def int16_probe_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     B = x.shape[0]
     out = torch.empty_like(x)
     if B:
-        lib = _build.load("int16_probe")
-        _build.count("int16_probe_cuda")
-        rc = lib.c3t_int16_probe(x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                                 B, _build.stream_of(x))
-        _build.check(lib, rc, "int16_probe_cuda")
+        _build.launch("int16_probe", "c3t_int16_probe", "int16_probe_cuda",
+                      x, x.data_ptr(), y.data_ptr(), out.data_ptr(), B)
     return out
 
 
@@ -128,12 +125,10 @@ def floor_probe_cuda(x: torch.Tensor, M: int, niter: int,
     if not 0 <= niter < 2 ** 31 or S * FLOOR_LANES >= 2 ** 31:
         raise ValueError(f"niter = {niter} or S = {S} out of range")
     out = torch.empty_like(x)
-    lib = _build.load("floor_probe")
-    _build.count("floor_probe_cuda")
-    rc = lib.c3t_floor_probe(x.data_ptr(), out.data_ptr(),
-                             S * FLOOR_LANES // FLOOR_THREADS, M, niter, nch,
-                             floor_pass_elems(S, mode), _build.stream_of(x))
-    _build.check(lib, rc, "floor_probe_cuda")
+    _build.launch("floor_probe", "c3t_floor_probe", "floor_probe_cuda", x,
+                  x.data_ptr(), out.data_ptr(),
+                  S * FLOOR_LANES // FLOOR_THREADS, M, niter, nch,
+                  floor_pass_elems(S, mode))
     return out
 
 

@@ -26,6 +26,9 @@ from . import _build
 
 # tile width of csrc/profile.cu (256 threads x 16 columns)
 TILE_WIDTH = 4096
+# the widest right overlap a tile takes (at least 256 new columns a tile):
+# splints of up to ~2550 bases
+MAX_OVERLAP = TILE_WIDTH - 256
 
 
 def substitution(a: torch.Tensor, b: torch.Tensor, match: int,
@@ -69,6 +72,12 @@ def tile_overlap(m: int, match: int = 1, gap: int = 2) -> int:
     return -(-(int(m * (gap + match) / gap) + 8) // 16) * 16
 
 
+def profile_fits(m: int, match: int = 1, gap: int = 2) -> bool:
+    """Whether the kernel takes splints of width m (the backend sends a
+    combo set it does not take to the exact host path)."""
+    return tile_overlap(m, match, gap) <= MAX_OVERLAP
+
+
 def start_profile_cuda(reads: torch.Tensor, splints: torch.Tensor,
                        lens: torch.Tensor, match: int = 1,
                        mismatch: int = -2, gap: int = 2) -> torch.Tensor:
@@ -86,20 +95,17 @@ def start_profile_cuda(reads: torch.Tensor, splints: torch.Tensor,
         raise ValueError(f"lens has {lens.shape[0]} rows, reads {B}")
     if L % 16:
         raise ValueError(f"L = {L} must be a multiple of 16")
-    ov = tile_overlap(m, match, gap)
-    if ov > TILE_WIDTH - 256:
+    if not profile_fits(m, match, gap):
         raise ValueError(f"splint length {m} too long for the profile "
                          f"kernel's {TILE_WIDTH}-column tiles")
+    ov = tile_overlap(m, match, gap)
     out = torch.empty((B, C, L), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    lib = _build.load("profile")
-    _build.count("start_profile_cuda")
-    rc = lib.c3t_start_profile(
-        reads.data_ptr(), lens.data_ptr(), splints.data_ptr(),
-        out.data_ptr(), B, L, C, m, ov, match, mismatch, gap,
-        _build.stream_of(reads))
-    _build.check(lib, rc, "start_profile_cuda")
+    _build.launch("profile", "c3t_start_profile", "start_profile_cuda",
+                  reads, reads.data_ptr(), lens.data_ptr(),
+                  splints.data_ptr(), out.data_ptr(), B, L, C, m, ov, match,
+                  mismatch, gap)
     return out
 
 

@@ -33,6 +33,8 @@ from ..consensus.engine import (ConsensusParams, _pair_band,
                                 serial_align_many)
 from ..consensus.vote import SubreadAln
 from ..device import resolve_device
+from ..kernels import banded as kbanded
+from ..kernels import sw_profile
 from ..kernels.adapters import adapter_hits
 from ..kernels.banded import (SMAX, banded_align_trace, ops_to_record,
                               unpack_ops_packed)
@@ -99,6 +101,11 @@ class TorchBackend:
     def locate_many(self, reads, combos, min_dist) -> list[LocateResult]:
         S = self._splints(combos)
         C = len(combos)
+        if not sw_profile.profile_fits(S.shape[1]):
+            # splints too long for the profile kernel's tiles: every read
+            # takes the exact host path, on both devices
+            prof.current.count("long_splint_host_located", len(reads))
+            return NumpyBackend().locate_many(reads, combos, min_dist)
         out: list = [None] * len(reads)
         overlong = [i for i, r in enumerate(reads) if len(r) > MAX_READ_LEN]
         if overlong:
@@ -267,6 +274,7 @@ class TorchBackend:
         out: list = [None] * len(pairs)
         serial: list[int] = []
         device_items = []
+        overlong = 0
         for i, pr in enumerate(pairs):
             q, t = pr[0], pr[2]
             if len(t) > (SMAX - 1) * len(q) + 1:
@@ -274,8 +282,16 @@ class TorchBackend:
                 # cannot track the diagonal — the host aligner takes it
                 serial.append(i)
                 continue
+            if _round_up(len(t), 64) > kbanded.FWD_MAX_TARGET:
+                # a target row (padded as launched) wider than the forward
+                # kernel stages: the host aligner, on both devices
+                serial.append(i)
+                overlong += 1
+                continue
             device_items.append((_pair_band(pr, params),
                                  max(len(q), len(t)), i))
+        if overlong:
+            prof.current.count("align_overlong_host", overlong)
         if serial:
             res = serial_align_many([pairs[i] for i in serial], params)
             for i, r in zip(serial, res):

@@ -26,14 +26,35 @@ repo's Python dependencies (no JAX needed or imported):
    (``c3poa_tpu_torch.tools.int16_probe``, which must exit 0 and prints
    the SASS it compiled to, and ``.floor_probe 64 4096``, which prints
    its table), each of which must launch its kernel;
-7. runs ``python -m c3poa_tpu_torch.cli_postprocess --backend cuda``
+7. sends a pair with a target one base over the banded forward kernel's
+   staging limit, and a combo set of a splint too long for the profile
+   kernel's tiles, through ``TorchBackend`` on the card: both take the
+   host routes and equal the numpy backend;
+8. runs ``python -m c3poa_tpu_torch.cli_postprocess --backend cuda``
    in-process on that run's consensus reads plus 1000 consensus-like
    reads with adapters and oligo-dT indexes, requires the adapter kernel
    to have launched during that run, and requires its output tree to
    equal the numpy backend's byte for byte;
-8. prints one JSON line with the kernels (times, launches, and the
+9. prints one JSON line with the kernels (times, launches, and the
    least time the card could take for the same work), the
    ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}`` line.
+
+Besides, step 4 times the locate step's smoothing and peak candidates
+(torch ops) alone with their bound and a conv1d yardstick, measures the
+float32 smoothing's error at 200 and 450 bp splints and the peak guard's
+extra flags (``tools/smooth_error``), reads the int16 probe's device
+time from ``torch.profiler`` at two shapes, and times the adapter kernel
+on the inputs of ``c3poa_tpu_torch.tools.adapters_time`` (its general
+path, a long read, small batches), each held to its plain version.
+
+    python3 chip_smoke.py --parent-adapters DIR
+
+also builds ``DIR/adapters.cu`` (an earlier revision of the adapter
+kernel, with its ``adapters.cuh``, C signature ``c3t_adapter_hits`` of 6
+pointers) into a temporary directory and times it beside the current
+kernel on the inputs of ``c3poa_tpu_torch.tools.adapters_time`` (the
+postprocess shape, the general path, a long read, small batches), in the
+order earlier, current, current, earlier.
 
 Exits non-zero, printing no result line, when there is no CUDA device,
 when the repo's packages are missing, or when any phase fails.  Work
@@ -42,11 +63,13 @@ files go to ``build/chip_smoke/`` in the checkout.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -62,23 +85,37 @@ N_POST_READS = 1000
 # behind the data sheet's 67 TFLOP/s float32 figure.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# float32 outside the tensor cores (NVIDIA's data sheet), a multiply and
+# an add counted as two operations
+F32_OPS_PER_S = 67e12
 # one SM issues at most four warp instructions a clock (one per scheduler,
 # 128 lanes), over its ALU and FMA pipes together
 SM_LANE_OPS_PER_S = 4 * 32 * 1.98e9
+# the same on all 132 SMs
+LANE_OPS_PER_S = 132 * SM_LANE_OPS_PER_S
 # integer operations a DP cell (or walk step) needs, counted from the
 # recurrences: profile — substitution 2, diagonal and up 2, 3-way max 2,
 # run shift, max and unshift 3, column max 1; banded forward —
 # substitution 2, E 3 and its flag 1, D 1, Ht 1, F prefix 3 and its flag
 # 3, H 1, move source 3, nibble 2; walk — nibble decode 2, state and
-# source 4, i/j 2; adapters — substitution 2, diagonal with its fresh
-# payload 3, up 1, diagonal-or-up 3, floor 3, run shift, join and unshift
-# 5, column max with row and payload 4; int16 probe — max, roll, select
-# and add per column; floor probe — per (add, max) pair the fewest Hopper
-# instructions: one DPX VIADDMNMX does the add and the max, one more
-# negates (c - (x + c) is -x), on one SM by design
+# source 4, i/j 2; int16 probe — max, roll, select and add per column;
+# floor probe and adapters — the fewest Hopper instructions, over 128
+# lanes an SM (the floor probe issues them at that rate).  Floor probe, per
+# (add, max) pair: one DPX VIADDMNMX does the add and the max, one more
+# negates (c - (x + c) is -x), on one SM by design.  Adapters, per cell of
+# the direct recurrence with its payload and tie order in one word
+# (csrc/adapters.cuh, the packed path): the substitution byte (PRMT), the
+# diagonal (IADD3), the three-way max of diagonal, up and left (VIMNMX3),
+# the floor (VIADDMNMX), the tie rank cleared (LOP3), the cell as the
+# next column's left and the next row's up (2 IADD), the column's key
+# (VIADDMNMX); the lane's step around the cells is not counted
 OPS_PER_CELL = {"start_profile_cuda": 10, "banded_fwd_cuda": 20,
-                "banded_walk_cuda": 8, "adapter_hits_cuda": 21,
+                "banded_walk_cuda": 8, "adapter_hits_cuda": 8,
                 "int16_probe_cuda": 4, "floor_probe_cuda": 2}
+# the adapter kernel's first count, printed beside the bound: a prefix
+# scan of the in-row run (run shift, join and unshift 5 and 16 more a
+# cell) on the 64-lane ALU
+ADAPTER_SCAN_OPS_PER_CELL = 21
 
 # the TPU kernel each CUDA kernel replaces
 KERNELS = {
@@ -142,6 +179,21 @@ def cuda_time_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def device_activities(fn) -> list:
+    """[(name, microseconds)] of the device activities (kernels, copies,
+    sets) one call of ``fn`` runs, from ``torch.profiler``; empty when
+    the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in p.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S
@@ -250,6 +302,79 @@ def phase_profile(dev, reads, splints, results):
     if d_cpu > 2e-4:
         raise SmokeFailure(f"smooth3 on the card differs from the CPU by "
                            f"{d_cpu} > 2e-4")
+    smooth_peaks_row(dev, Rd, Sd, ld, want)
+
+    # the f32 error and the margin guard's flags with and without its
+    # relative term (STRUCT_REL): the consensus run's 1000 reads and 200 bp
+    # splint, and 128 bench-shaped reads of a 450 bp splint
+    from c3poa_tpu_torch.tools import smooth_error
+    for res in (smooth_error.measure_reads(
+                    [encode(r.seq) for r in reads], combos, dev),
+                smooth_error.measure(128, 450, SEED, dev)):
+        log(f"smooth_error {res['splint_len']} bp: {json.dumps(res)}")
+        if res["flagged"] < res["flagged_floor_only"]:
+            raise SmokeFailure("the relative structure margin flags fewer "
+                               "reads than its floor alone")
+
+
+def smooth_peaks_row(dev, Rd, Sd, ld, prof):
+    """The locate step's torch ops alone (``kernels/locate.py:51-55``):
+    the chosen combo's row gathered and made float, ``smooth3_batch`` and
+    ``peak_candidates_batch``; with the device kernels one locate batch
+    launches (``torch.profiler``), a bound and three conv1d passes of the
+    same 41 taps as a yardstick (not bit-equal: no per-read edge
+    padding)."""
+    import torch
+
+    from c3poa_tpu_torch.kernels.locate import locate_device
+    from c3poa_tpu_torch.kernels.peaks import peak_candidates_batch
+    from c3poa_tpu_torch.kernels.smooth import smooth3_batch
+    from c3poa_tpu_torch.ref.sg import sg_coeffs
+
+    B, _, L = prof.shape
+    combo = prof.max(dim=2).values.argmax(dim=1)
+    idx = combo.view(B, 1, 1).expand(B, 1, L)
+
+    def gathered():
+        return torch.gather(prof, 1, idx)[:, 0, :].to(torch.float32)
+
+    rows = gathered()
+    sm = smooth3_batch(rows, ld)
+    cand = peak_candidates_batch(sm, ld, tile=64)
+
+    def both():
+        x = smooth3_batch(gathered(), ld)
+        return peak_candidates_batch(x, ld, tile=64)
+
+    ms_gather = cuda_time_ms(gathered, 5)
+    ms_smooth = cuda_time_ms(lambda: smooth3_batch(rows, ld), 5)
+    ms_peaks = cuda_time_ms(lambda: peak_candidates_batch(sm, ld, tile=64),
+                            5)
+    ms_all = cuda_time_ms(both, 5)
+    w = torch.tensor(sg_coeffs(41, 2), dtype=torch.float32,
+                     device=dev).view(1, 1, 41)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        def conv3():
+            x = rows.view(B, 1, L)
+            for _ in range(3):
+                x = torch.nn.functional.conv1d(x, w, padding=20)
+            return x
+        ms_conv = cuda_time_ms(conv3, 5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    step = device_activities(both)
+    batch = device_activities(lambda: locate_device(Rd, ld, Sd, tile=64))
+    # the int32 row read once, the candidates and flags written once
+    bd = bound(B * L * 4 + nbytes(*cand), 3 * 41 * 2 * B * L, F32_OPS_PER_S)
+    row = dict(ms=ms_all, ms_gather=ms_gather, ms_smooth=ms_smooth,
+               ms_peaks=ms_peaks, library_ms=ms_conv,
+               step_device_activities=len(step),
+               step_device_us=sum(a[1] for a in step),
+               locate_batch_device_activities=len(batch),
+               locate_batch_device_us=sum(a[1] for a in batch), **bd)
+    log(f"smoothing and peaks: B={B} L={L}: {json.dumps(row)}")
 
 
 def make_pairs(P: int, nq: int, rng):
@@ -381,59 +506,24 @@ def phase_banded(dev, results):
         log("  " + line)
 
 
-def consensus_like_reads(rng, n: int, indexes=None):
-    """``n`` postprocess inputs: cDNA of 500-2000 bases between the
-    default adapters, 1% errors, directions alternating; the i-th read
-    carries index i % 4 when ``indexes`` are given."""
-    from c3poa_tpu_torch import sim
-    out = []
-    for i in range(n):
-        idx = indexes[f"Index{i % 4 + 1}"] if indexes else None
-        name, seq, _ = sim.make_consensus_like(
-            rng, f"cl_{i}", cdna_len=int(rng.integers(500, 2001)),
-            index=idx, direction="+-"[i % 2], error=0.01)
-        out.append((name, seq))
-    return out
-
-
-def adapter_combos():
-    """The postprocess combos: each default adapter forward, then
-    reverse complemented (pipeline/postprocess.py's order)."""
-    from c3poa_tpu_torch import sim
-    from c3poa_tpu_torch.utils import encode, revcomp_encoded
-    combos = []
-    for seq in sim.DEFAULT_ADAPTERS.values():
-        combos += [encode(seq), revcomp_encoded(encode(seq))]
-    return combos
-
-
-def phase_adapters(dev, results):
+def phase_adapters(dev, results, parent_dir=None):
     """The adapter kernel at the postprocess shape: 1000 consensus-like
-    reads, C = 4 combos, L = the longest read rounded up to 64."""
+    reads, C = 4 combos, L = the longest read rounded up to 64; what the
+    batch asks of it; its SASS (a DPX three-way max required) and step
+    loops; its times on the inputs of ``tools/adapters_time`` (the general
+    path, a long read, small batches), with ``parent_dir`` beside an
+    earlier kernel."""
     import numpy as np
     import torch
 
+    from c3poa_tpu_torch.kernels import _build
     from c3poa_tpu_torch.kernels.adapters import (adapter_hits_batch,
                                                   adapter_hits_cuda)
     from c3poa_tpu_torch.pipeline.backend import NumpyBackend
-    from c3poa_tpu_torch.state import to_device
-    from c3poa_tpu_torch.utils import encode
+    from c3poa_tpu_torch.tools import adapters_time
 
-    reads = [encode(s) for _, s in consensus_like_reads(
-        np.random.default_rng(SEED + 3), N_POST_READS)]
-    combos = adapter_combos()
-    B, C = len(reads), len(combos)
-    L = -(-max(len(r) for r in reads) // 64) * 64
-    R = np.full((B, L), 4, dtype=np.int8)
-    lens = np.array([len(r) for r in reads], dtype=np.int32)
-    for b, r in enumerate(reads):
-        R[b, :len(r)] = r
-    m = max(len(c) for c in combos)
-    A = np.full((C, m), 4, dtype=np.int8)
-    for c, codes in enumerate(combos):
-        A[c, :len(codes)] = codes
-    alens = np.array([len(c) for c in combos], dtype=np.int32)
-    args = [to_device(x, dev) for x in (R, lens, A, alens)]
+    args = adapters_time.postprocess_batch(dev)
+    (B, L), (C, m) = args[0].shape, args[2].shape
     scoring = NumpyBackend.ADAPTER_SCORING
     got = adapter_hits_cuda(*args, *scoring)
     want = adapter_hits_batch(*args, *scoring)
@@ -443,14 +533,103 @@ def phase_adapters(dev, results):
         err = require_equal(f"adapter_hits_cuda {name}", a, b)
     ms = cuda_time_ms(lambda: adapter_hits_cuda(*args, *scoring), 10)
     plain_ms = cuda_time_ms(lambda: adapter_hits_batch(*args, *scoring), 1)
+    lens_t, alens_t = args[1], args[3]
+    lens, alens = lens_t.cpu().numpy(), alens_t.cpu().numpy()
     cells = int(lens.astype(np.int64).sum()) * int(alens.sum())
-    bd = bound(nbytes(*args, *got), OPS_PER_CELL["adapter_hits_cuda"] * cells)
-    log(f"adapters: B={B} C={C} L={L} m={m} exact; kernel {ms:.3f} ms "
+    bd = bound(nbytes(*args, *got), OPS_PER_CELL["adapter_hits_cuda"] * cells,
+               LANE_OPS_PER_S)
+    scan = bound(nbytes(*args, *got), ADAPTER_SCAN_OPS_PER_CELL * cells)
+    log(f"adapters: B={B} C={C} L={L} m={m} exact; kernel {ms:.4f} ms "
         f"({cells / ms / 1e6:.2f} G cells/s), plain {plain_ms:.3f} ms, "
-        f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, {cells} cells); "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, {cells} cells, "
+        f"{OPS_PER_CELL['adapter_hits_cuda']} operations a cell on 128 "
+        f"lanes an SM: the kernel at {bd['bound_ms'] / ms:.1%} of it); "
+        f"{scan['bound_ms']:.4f} ms with the prefix-scan count "
+        f"({ADAPTER_SCAN_OPS_PER_CELL} on 64 lanes); "
         f"s1 > 10 in {int((got[0] > 10).sum())} of {B * C}")
     results["adapter_hits_cuda"] = dict(max_abs_err=err, ms=ms,
                                         plain_ms=plain_ms, **bd)
+    log(f"adapters batch: {json.dumps(adapters_time.batch_stats(lens_t, alens_t))}")
+    for line in _build.build_logs.get("adapters", "").splitlines():
+        if "registers" in line or "spill" in line or "stack" in line:
+            log(f"  adapters ptxas: {line.strip()}")
+    insns = adapter_sass()
+    ops = {}
+    for _addr, insn in insns:
+        op = _build.sass_mnemonic(insn).split(".")[0]
+        ops[op] = ops.get(op, 0) + 1
+    dpx = {k: v for k, v in ops.items() if k.startswith("VI")}
+    local = [(hex(a), i) for a, i in insns
+             if _build.sass_mnemonic(i).split(".")[0] in ("LDL", "STL")]
+    log(f"adapters SASS: {sum(ops.values())} instructions, DPX {dpx}; "
+        f"step loops (instructions, PRMT, SHFL, LDL+STL): "
+        f"{adapters_time.sweep_loops(insns)}; local memory {local}; "
+        f"{json.dumps(dict(sorted(ops.items(), key=lambda kv: -kv[1])))}")
+    # the packed path's cell: a three-way DPX max (__vimax3_s32)
+    if not ops.get("VIMNMX3"):
+        raise SmokeFailure("no VIMNMX3 (DPX) in the adapter kernel")
+    kernels = {"current": adapters_time.launcher(_build.load("adapters"))}
+    tmp = tempfile.mkdtemp(prefix="parent_adapters_")
+    try:
+        if parent_dir:
+            kernels = {"earlier": earlier_adapters(parent_dir, tmp),
+                       **kernels}
+        res = adapters_time.measure(kernels, adapters_time.shapes(dev))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for label, r in res.items():
+        log(f"adapters, {label} (timed {', '.join(kernels)}, then "
+            f"reversed): {json.dumps(r)}")
+
+
+def earlier_adapters(src_dir: str, tmp: str):
+    """The adapter kernel of ``src_dir/adapters.cu`` (with its
+    ``adapters.cuh``) of the earlier C interface (six pointers: a (B, C,
+    L, 2) scratch, no carry row), built by nvcc into ``tmp``: a function
+    (reads, lens, adapters, alens) -> (6, B, C) int32."""
+    import ctypes
+
+    import torch
+
+    from c3poa_tpu_torch.constants import ADAPTER_OVERLAP_TOL
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.pipeline.backend import NumpyBackend
+
+    so = os.path.join(tmp, "earlier_adapters.so")
+    done = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+         os.path.join(src_dir, "adapters.cu")], capture_output=True,
+        text=True, timeout=600)
+    if done.returncode:
+        raise SmokeFailure(f"earlier adapters: nvcc failed\n{done.stdout}"
+                           f"{done.stderr}")
+    for line in (done.stdout + done.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  earlier adapters ptxas: {line.strip()}")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = _build.bind(ctypes.CDLL(so),
+                      {"c3t_adapter_hits": [P] * 6 + [I] * 8 + [P]})
+
+    def run(R, lens, A, alens):
+        B, L = R.shape
+        C, m = A.shape
+        out = torch.empty((6, B, C), dtype=torch.int32, device=R.device)
+        scratch = torch.empty((B, C, L, 2), dtype=torch.int32,
+                              device=R.device)
+        _build.launch(lib, "c3t_adapter_hits", "earlier_adapters", R,
+                      R.data_ptr(), lens.data_ptr(), A.data_ptr(),
+                      alens.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                      B, L, C, m, *NumpyBackend.ADAPTER_SCORING,
+                      ADAPTER_OVERLAP_TOL)
+        return out
+    return run
+
+
+def adapter_sass() -> list:
+    """The adapter kernel's SASS: [(address, instruction)]."""
+    from c3poa_tpu_torch.kernels import _build
+    funcs = _build.sass("adapters")
+    return funcs[next(k for k in funcs if "adapter_hits_kernel" in k)]
 
 
 def phase_probes(dev, results):
@@ -473,15 +652,33 @@ def phase_probes(dev, results):
         want = probes.int16_probe_plain(xd, yd)
         torch.cuda.synchronize()
         err = require_equal(f"int16_probe_cuda {tuple(x.shape)}", got, want)
-    ms = cuda_time_ms(lambda: probes.int16_probe_cuda(xd, yd), 200)
+    launch_ms = cuda_time_ms(lambda: probes.int16_probe_cuda(xd, yd), 200)
     plain_ms = cuda_time_ms(lambda: probes.int16_probe_plain(xd, yd), 50)
+    ms = int16_device_ms(xd, yd)
     bd = bound(nbytes(xd, yd, got),
                OPS_PER_CELL["int16_probe_cuda"] * got.numel())
     log(f"int16 probe: (4096, 128) and the original's (16, 128) exact; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+        f"kernel {ms:.5f} ms on the device (torch.profiler; "
+        f"{launch_ms:.4f} ms a launch from the host), plain "
+        f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.5f} ms "
+        f"({bd['bound_by']})")
     results["int16_probe_cuda"] = dict(max_abs_err=err, ms=ms,
                                        plain_ms=plain_ms, **bd)
+    # a shape where bytes dominate: 64 MiB an input
+    x, y = (rng.integers(-2 ** 15, 2 ** 15, (262144, 128)).astype(np.int16)
+            for _ in range(2))
+    xl, yl = to_device(x, dev), to_device(y, dev)
+    big = probes.int16_probe_cuda(xl, yl)
+    torch.cuda.synchronize()
+    require_equal("int16_probe_cuda (262144, 128)", big,
+                  probes.int16_probe_plain(xl, yl))
+    ms_big = int16_device_ms(xl, yl)
+    bd_big = bound(nbytes(xl, yl, big),
+                   OPS_PER_CELL["int16_probe_cuda"] * big.numel())
+    log(f"int16 probe (262144, 128): {ms_big:.5f} ms on the device, bound "
+        f"{bd_big['bound_ms']:.5f} ms ({bd_big['bound_by']}): "
+        f"{bd_big['bound_ms'] / ms_big:.1%} of it")
+    del xl, yl, big
 
     M, niter = 64, FLOOR_CHECK_NITER
     for S in FLOOR_CHECK_S:
@@ -521,6 +718,29 @@ def phase_probes(dev, results):
             raise SmokeFailure(f"{name} was not launched by "
                                f"{tool.__name__}")
         results[name]["launches"] = counts[name]
+
+
+def int16_device_ms(xd, yd) -> float:
+    """Mean device time of the int16 probe kernel over 20 launches, read
+    from ``torch.profiler`` (not the host's launch rate); each launch
+    follows a 128 MB write that evicts the card's 50 MB L2, so no input is
+    read from a cache the launch before left warm."""
+    import torch
+
+    from c3poa_tpu_torch.kernels import probes
+    flush = torch.empty(32 << 20, dtype=torch.int32, device=xd.device)
+
+    def launches():
+        for _ in range(20):
+            flush.zero_()
+            probes.int16_probe_cuda(xd, yd)
+    probes.int16_probe_cuda(xd, yd)
+    acts = device_activities(launches)
+    us = [t for name, t in acts if "int16_probe" in name]
+    if len(us) < 10:
+        raise SmokeFailure(f"torch.profiler saw {len(us)} of 20 int16 "
+                           f"probe launches ({len(acts)} activities)")
+    return sum(us) / len(us) / 1e3
 
 
 def phase_end_to_end(results):
@@ -573,6 +793,67 @@ def phase_end_to_end(results):
         log(f"  {rel}: {len(a)} bytes, identical")
 
 
+def phase_host_routes(dev):
+    """The two host routes of ``TorchBackend`` on the card, each against
+    the numpy backend: a pair whose target is one base over the forward
+    kernel's staging limit beside one the kernel takes, and the combos of
+    a 2600-base splint, too long for the profile kernel's tiles."""
+    import numpy as np
+
+    from c3poa_tpu_torch import sim
+    from c3poa_tpu_torch.consensus.engine import ConsensusParams
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.kernels.banded import FWD_MAX_TARGET
+    from c3poa_tpu_torch.pipeline.backend import Combo, NumpyBackend
+    from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
+    from c3poa_tpu_torch.utils import encode, prof, revcomp_encoded
+
+    rng = np.random.default_rng(SEED + 5)
+    pairs = []
+    for n in (FWD_MAX_TARGET + 1, 1800):
+        t = sim.random_seq(rng, n)
+        q = sim.mutate(rng, t, 0.05, 0.03, 0.03)
+        pairs.append((encode(q), np.full(len(q), 20, np.int8), encode(t)))
+    params = ConsensusParams()
+    prof.reset()
+    _build.reset_counts()
+    got = [tuple(np.array(f) for f in a.rec)
+           for a in TorchBackend(dev).align_many(pairs, params)]
+    counts = dict(prof.current.counts)
+    want = [a.rec for a in NumpyBackend().align_many(pairs, params)]
+    if counts.get("align_overlong_host") != 1 or \
+            _build.launch_counts().get("banded_fwd_cuda") != 1:
+        raise SmokeFailure(f"long-target route: counters {counts}, "
+                           f"launches {_build.launch_counts()}")
+    for k, (x, y) in enumerate(zip(got, want)):
+        if not all(np.array_equal(u, v) for u, v in zip(x, y)):
+            raise SmokeFailure(f"long-target route: pair {k} differs from "
+                               f"the numpy backend's record")
+    log(f"long target ({len(pairs[0][2])} bases, limit {FWD_MAX_TARGET}) on "
+        f"the host beside a kernel pair: records equal numpy's; {counts}")
+
+    splint = sim.random_seq(rng, 2600)
+    codes = encode(splint)
+    combos = [Combo("s", "+", codes, len(codes)),
+              Combo("s", "-", revcomp_encoded(codes), len(codes))]
+    reads = [encode(sim.random_seq(rng, 500) + splint + sim.random_seq(
+        rng, 9000) + splint + sim.random_seq(rng, 9000)),
+        encode(sim.random_seq(rng, 4000))]
+    prof.reset()
+    got = TorchBackend(dev).locate_many(reads, combos, 500)
+    counts = dict(prof.current.counts)
+    want = NumpyBackend().locate_many(reads, combos, 500)
+    if counts.get("long_splint_host_located") != len(reads):
+        raise SmokeFailure(f"long-splint route: counters {counts}")
+    for x, y in zip(got, want):
+        if (x.combo, x.score) != (y.combo, y.score) or \
+                not np.array_equal(x.peaks, y.peaks):
+            raise SmokeFailure("long-splint route differs from numpy")
+    log(f"long splint ({len(splint)} bases): {len(reads)} reads located on "
+        f"the host, equal to numpy (peaks "
+        f"{[[int(p) for p in x.peaks] for x in got]})")
+
+
 def tree_bytes(root: str) -> dict:
     """{relative path: bytes} of every output file under ``root``."""
     tree = {}
@@ -597,6 +878,7 @@ def phase_postprocess_end_to_end(results):
     from c3poa_tpu_torch.pipeline.postprocess import (PostprocessConfig,
                                                       run_postprocess)
     from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
+    from c3poa_tpu_torch.tools import adapters_time
 
     indexes = {f"Index{i}": sim.random_seq(np.random.default_rng(300 + i), 10)
                for i in range(1, 5)}
@@ -608,7 +890,7 @@ def phase_postprocess_end_to_end(results):
     indexes_fa = os.path.join(WORK, "indexes.fasta")
     with open(post_in, "w") as fh:
         fh.write(cons)
-        for name, seq in consensus_like_reads(
+        for name, seq in adapters_time.consensus_like_reads(
                 np.random.default_rng(SEED + 2), N_POST_READS, indexes):
             fh.write(f">{name}\n{seq}\n")
     sim.write_fasta(adapters_fa, dict(sim.DEFAULT_ADAPTERS))
@@ -681,7 +963,12 @@ def phase_postprocess_end_to_end(results):
         raise SmokeFailure("postprocess wrote no read")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-adapters", metavar="DIR",
+                    help="an earlier adapters.cu (with its adapters.cuh) "
+                         "to time beside the current kernel")
+    opts = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -733,9 +1020,10 @@ def main() -> int:
         for phase, args in (
                 (phase_profile, (dev, reads, splints, results)),
                 (phase_banded, (dev, results)),
-                (phase_adapters, (dev, results)),
+                (phase_adapters, (dev, results, opts.parent_adapters)),
                 (phase_probes, (dev, results)),
                 (phase_end_to_end, (results,)),
+                (phase_host_routes, (dev,)),
                 (phase_postprocess_end_to_end, (results,))):
             t0 = time.time()
             phase(*args)

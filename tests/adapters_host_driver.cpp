@@ -2,13 +2,14 @@
 // (tests/test_torch_adapters.py builds it with g++).
 //
 // It runs the control flow of c3poa_tpu_torch/kernels/csrc/adapters.cu
-// serially over the functions of adapters.cuh: tiles of nt * ADP_K
-// columns, per row each thread's strip prefix, a Hillis-Steele scan of
-// the strip totals within warps of ``warp`` threads (the order of the
-// kernel's __shfl_up_sync steps), the carry chain over the tile
-// boundary, earlier warps and earlier lanes, and the epilogue's best hit
-// and second hit.  Small ``nt`` and ``warp`` put tile and warp seams
-// inside short reads.
+// serially over the functions of adapters.cuh: whole (read, combo)
+// sweeps, lane by lane, each step taking the lane above's output of the
+// step before (the kernel's __shfl_up_sync as an array shift), passes of
+// ``warp`` lanes with the carry row between them, the last lane's scratch
+// words and best hit, and the second-hit reduction.  A warp narrower than
+// 32 lanes puts pass seams inside short combos.  The packed path (one
+// word a cell, adapters.cuh) runs as the kernel runs it: 32 lanes, one
+// pass.
 #include <stddef.h>
 #include <stdint.h>
 
@@ -18,127 +19,169 @@
 
 namespace {
 
-struct Strip {
-    int rc[ADP_K];
-    int32_t H[ADP_K], cm[ADP_K], qe[ADP_K], A[ADP_K];
-    uint32_t P[ADP_K], cp[ADP_K], Q[ADP_K];
-    int32_t hl;
-    uint32_t pl;
+struct Best {
+    int32_t s = -1, j = 0, k = ADP_CM0;
+    uint32_t p = 0;
 };
 
-void one_block(const int8_t* rrow, int len, int L, const int8_t* q, int mc,
-               int match, int mismatch, int gap, int tol, int nt, int warp,
-               int32_t* res) {
-    const int tw = nt * ADP_K;
-    std::vector<int32_t> bA(mc, -gap);
-    std::vector<uint32_t> bP(mc, 0);
-    std::vector<int32_t> scr_cm(len > 0 ? len : 1), scr_ts(len > 0 ? len : 1);
-    std::vector<Strip> th(nt);
-    std::vector<int32_t> bs(nt, -1), bj(nt, 0), bq(nt, 0);
-    std::vector<uint32_t> bp(nt, 0);
-    std::vector<int32_t> sA(nt), eA(nt), oA(nt), wA(nt / warp);
-    std::vector<uint32_t> sP(nt), eP(nt), oP(nt), wP(nt / warp);
-
-    for (int t0 = 0; t0 < len; t0 += tw) {
-        for (int t = 0; t < nt; ++t) {
-            Strip& s = th[t];
-            const int j0 = t0 + t * ADP_K;
-            for (int k = 0; k < ADP_K; ++k) {
-                s.rc[k] = j0 + k < L ? rrow[j0 + k] : 4;
-                s.H[k] = 0; s.P[k] = adp_pack(j0 + k + 1, 0);
-                s.cm[k] = 0; s.qe[k] = 0; s.cp[k] = 0;
-            }
-            s.hl = 0; s.pl = 0;
+template <int R>
+void sweep_pass(const int8_t* rrow, int len, const int8_t* q, int mc,
+                int first_row, int match, int mismatch, int gap, int warp,
+                bool carry_in, std::vector<AdpFlow>& carry,
+                std::vector<uint32_t>& scr, bool final, Best& best) {
+    const int rows = (warp * R < mc - first_row) ? warp * R : mc - first_row;
+    const int last = (rows + R - 1) / R - 1;
+    std::vector<AdpLane<R>> st(warp);
+    std::vector<AdpFlow> out(warp), up(warp);
+    std::vector<int32_t> dhg(warp, -gap);
+    std::vector<uint32_t> dp(warp, adp_edge(first_row - 1, gap).p);
+    for (int l = 0; l < warp; ++l) {
+        adp_lane_init<R>(st[l], q, mc, first_row + l * R, match, mismatch,
+                         gap);
+        out[l] = adp_edge(first_row + l * R + R - 1, gap);
+    }
+    for (int s = 0; s < len + last; ++s) {
+        for (int l = 0; l < warp; ++l) {
+            const int j = s - l;
+            if (l > 0)
+                up[l] = out[l - 1];
+            else if (carry_in && j < len)
+                up[l] = carry[j];
+            else
+                up[l] = adp_top(j, gap);
         }
-        for (int i = 0; i < mc; ++i) {
-            for (int t = 0; t < nt; ++t) {
-                Strip& s = th[t];
-                adp_strip_prefix(s.rc, q[i], t0 + t * ADP_K, i, match,
-                                 mismatch, gap, s.hl, s.pl, s.H, s.P, s.A,
-                                 s.Q);
-                sA[t] = s.A[ADP_K - 1];
-                sP[t] = s.Q[ADP_K - 1];
-            }
-            for (int d = 1; d < warp; d <<= 1) {
-                oA = sA; oP = sP;
-                for (int t = 0; t < nt; ++t)
-                    if (t % warp >= d)
-                        adp_join(oA[t - d], oP[t - d], &sA[t], &sP[t]);
-            }
-            for (int t = 0; t < nt; ++t) {
-                eA[t] = t % warp ? sA[t - 1] : sA[t];
-                eP[t] = t % warp ? sP[t - 1] : sP[t];
-                if (t % warp == warp - 1) { wA[t / warp] = sA[t]; wP[t / warp] = sP[t]; }
-            }
-            for (int t = 0; t < nt; ++t) {
-                Strip& s = th[t];
-                int32_t cA = bA[i];
-                uint32_t cP = bP[i];
-                for (int w = 0; w < t / warp; ++w) {
-                    int32_t a = wA[w];
-                    uint32_t p = wP[w];
-                    adp_join(cA, cP, &a, &p);
-                    cA = a; cP = p;
-                }
-                if (t % warp) {
-                    int32_t a = eA[t];
-                    uint32_t p = eP[t];
-                    adp_join(cA, cP, &a, &p);
-                    cA = a; cP = p;
-                }
-                const int j0 = t0 + t * ADP_K;
-                adp_strip_finish(cA, cP, j0, i, gap, len, s.A, s.Q, s.H, s.P,
-                                 s.cm, s.qe, s.cp);
-                s.hl = cA - gap * (j0 - 1);
-                s.pl = cP;
-            }
-            bA[i] = th[nt - 1].A[ADP_K - 1];
-            bP[i] = th[nt - 1].Q[ADP_K - 1];
+        for (int l = 0; l < warp; ++l) {
+            const int j = s - l;
+            const int code = (unsigned)j < (unsigned)len ? rrow[j] : 4;
+            out[l] = adp_lane_step<R>(st[l], code, j, dhg[l], dp[l], up[l],
+                                      gap);
+            dhg[l] = up[l].hg;
+            dp[l] = up[l].p;
         }
-        for (int t = 0; t < nt; ++t) {
-            const Strip& s = th[t];
-            for (int k = 0; k < ADP_K; ++k) {
-                const int j = t0 + t * ADP_K + k;
-                if (j >= len) continue;
-                scr_cm[j] = s.cm[k];
-                scr_ts[j] = adp_ts(s.cp[k]);
-                if (s.cm[k] > bs[t]) {
-                    bs[t] = s.cm[k]; bj[t] = j; bq[t] = s.qe[k]; bp[t] = s.cp[k];
-                }
+        const int j = s - last;
+        if (j < 0) continue;
+        const AdpFlow& f = out[last];
+        if (final) {
+            scr[j] = adp_word(f.key, f.kp);
+            if (adp_colmax(f.key) > best.s) {
+                best.s = adp_colmax(f.key); best.j = j; best.k = f.key;
+                best.p = f.kp;
             }
+        } else {
+            carry[j] = f;
         }
     }
-    int32_t s1 = bs[0], j1 = bj[0], qe1 = bq[0];
-    uint32_t p1 = bp[0];
-    for (int t = 1; t < nt; ++t)
-        if (adp_better(bs[t], bj[t], s1, j1)) {
-            s1 = bs[t]; j1 = bj[t]; qe1 = bq[t]; p1 = bp[t];
-        }
-    if (s1 < 0) { s1 = 0; j1 = 0; qe1 = 0; p1 = 0; }
-    const int32_t ts1 = adp_ts(p1);
+}
+
+template <int R>
+void sweep(const int8_t* rrow, int len, const int8_t* q, int mc, int match,
+           int mismatch, int gap, int warp, std::vector<uint32_t>& scr,
+           Best& best) {
+    std::vector<AdpFlow> carry(len > 0 ? len : 1);
+    for (int first = 0; first < mc; first += warp * R)
+        sweep_pass<R>(rrow, len, q, mc, first, match, mismatch, gap, warp,
+                      first > 0, carry, scr, first + warp * R >= mc, best);
+}
+
+void one_warp(const int8_t* rrow, int len, const int8_t* q, int mc,
+              int match, int mismatch, int gap, int tol, int warp,
+              int32_t* res) {
+    std::vector<uint32_t> scr(len > 0 ? len : 1, 0u);
+    Best best;
+    if (mc > 0 && adp_rows_per_lane(mc, warp) == 1)
+        sweep<1>(rrow, len, q, mc, match, mismatch, gap, warp, scr, best);
+    else if (mc > 0)
+        sweep<ADP_MAX_R>(rrow, len, q, mc, match, mismatch, gap, warp, scr,
+                         best);
+    if (mc <= 0 && len > 0) best.s = 0;
+    if (best.s < 0) best = Best{0, 0, ADP_CM0, 0u};
+    const int32_t ts1 = adp_ts(best.p);
     int32_t s2 = ADP_NEG;
     for (int j = 0; j < len; ++j) {
-        const int32_t v = adp_second(scr_cm[j], scr_ts[j], j, j1, ts1, tol);
+        const int32_t v = adp_second(scr[j], j, best.j, ts1, tol);
         if (v > s2) s2 = v;
     }
-    res[0] = s1; res[1] = j1; res[2] = qe1; res[3] = ts1;
-    res[4] = adp_qs(p1); res[5] = s2;
+    res[0] = best.s; res[1] = best.j; res[2] = adp_qe(best.k);
+    res[3] = ts1; res[4] = adp_qs(best.p); res[5] = s2;
+}
+
+// the packed path: one pass of 32 lanes, the last lane's keys into the
+// scratch row, then the outputs from it
+template <int R>
+void packed_sweep(const int8_t* rrow, int len, const int8_t* q, int mc,
+                  int match, int mismatch, int gap,
+                  std::vector<int32_t>& scr) {
+    const int warp = 32, last = (mc + R - 1) / R - 1;
+    std::vector<AdpkLane<R>> st(warp);
+    std::vector<AdpkFlow> out(warp), up(warp);
+    std::vector<int32_t> dup(warp, adpk_edge(-1, gap).up);
+    for (int l = 0; l < warp; ++l) {
+        adpk_lane_init<R>(st[l], q, mc, l * R, match, mismatch, gap);
+        out[l] = adpk_edge(l * R + R - 1, gap);
+    }
+    for (int s = 0; s < len + last; ++s) {
+        for (int l = 0; l < warp; ++l)
+            up[l] = l ? out[l - 1] : adpk_top(s, gap);
+        for (int l = 0; l < warp; ++l) {
+            const int j = s - l;
+            const int code = (unsigned)j < (unsigned)len ? rrow[j] : 4;
+            out[l] = adpk_lane_step<R>(st[l], code, j, dup[l], up[l], gap);
+            dup[l] = up[l].up;
+        }
+        if (s - last >= 0) scr[s - last] = out[last].key;
+    }
+}
+
+void packed_one(const int8_t* rrow, int len, const int8_t* q, int mc,
+                int match, int mismatch, int gap, int tol, int32_t* res) {
+    std::vector<int32_t> scr(len > 0 ? len : 1);
+    if (adp_rows_per_lane(mc, 32) == 1)
+        packed_sweep<1>(rrow, len, q, mc, match, mismatch, gap, scr);
+    else
+        packed_sweep<ADP_MAX_R>(rrow, len, q, mc, match, mismatch, gap, scr);
+    int32_t best = -1;
+    for (int j = 0; j < len; ++j) {
+        const int32_t b = adpk_best(scr[j], j);
+        if (b > best) best = b;
+    }
+    int32_t s2 = ADP_NEG;
+    if (best < 0) {
+        res[0] = res[1] = res[2] = res[3] = res[4] = 0;
+    } else {
+        const int32_t j1 = adpk_best_column(best), k1 = scr[j1];
+        res[0] = adpk_colmax(k1); res[1] = j1; res[2] = adpk_qe(k1);
+        res[3] = adpk_ts(k1); res[4] = adpk_qs(k1);
+        for (int j = 0; j < len; ++j) {
+            const int32_t v = adpk_second(scr[j], j, j1, res[3], tol);
+            if (v > s2) s2 = v;
+        }
+    }
+    res[5] = s2;
 }
 
 }  // namespace
 
+// warp 0: the kernel's own choice, read by read: the packed path where
+// adpk_fits, else the general path with warps of 32 lanes; otherwise the
+// general path with warps of ``warp`` lanes
 extern "C" int adp_hits_host(const int8_t* reads, const int32_t* lens, int B,
                              int L, const int8_t* adapters,
                              const int32_t* alens, int C, int m, int match,
-                             int mismatch, int gap, int tol, int nt, int warp,
+                             int mismatch, int gap, int tol, int warp,
                              int32_t* out) {
-    if (nt <= 0 || warp <= 0 || nt % warp) return 1;
+    if (warp < 0 || warp > 32) return 1;
     for (int b = 0; b < B; ++b)
         for (int c = 0; c < C; ++c) {
             int32_t res[6];
-            one_block(reads + (size_t)b * L, lens[b], L,
-                      adapters + (size_t)c * m, alens[c], match, mismatch,
-                      gap, tol, nt, warp, res);
+            if (warp == 0 && alens[c] > 0 &&
+                adpk_fits(lens[b], m, match, mismatch, gap))
+                packed_one(reads + (size_t)b * L, lens[b],
+                           adapters + (size_t)c * m, alens[c], match,
+                           mismatch, gap, tol, res);
+            else
+                one_warp(reads + (size_t)b * L, lens[b],
+                         adapters + (size_t)c * m, alens[c], match, mismatch,
+                         gap, tol, warp ? warp : 32, res);
             for (int k = 0; k < 6; ++k)
                 out[((size_t)k * B + b) * C + c] = res[k];
         }

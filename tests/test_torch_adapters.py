@@ -19,8 +19,10 @@ from c3poa_tpu.pipeline.backend import NumpyBackend
 from c3poa_tpu_torch.kernels import adapters as ka
 from c3poa_tpu_torch.pipeline import torch_backend as tbe
 from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
-from torch_adapter_cases import (ADAPTER_SETS, adapter_matrix, batch, combos,
-                                 edge_reads)
+from c3poa_tpu_torch import sim
+from c3poa_tpu_torch.utils import encode
+from torch_adapter_cases import (A3, A5, ADAPTER_SETS, adapter_matrix, batch,
+                                 combos, edge_reads)
 
 torch.set_num_threads(1)
 
@@ -134,7 +136,7 @@ def test_dispatch_never_falls_back():
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     """tests/adapters_host_driver.cpp over csrc/adapters.cuh, built with
-    g++ (the CUDA kernel's control flow, run serially)."""
+    g++ (the CUDA kernel's wavefront, run lane by lane)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++")
@@ -145,23 +147,111 @@ def host_lib(tmp_path_factory):
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.adp_hits_host.argtypes = [P, P, I, I, P, P, I, I] + [I] * 6 + [P]
+    lib.adp_hits_host.argtypes = [P, P, I, I, P, P, I, I] + [I] * 5 + [P]
     lib.adp_hits_host.restype = I
     return lib
 
 
-@pytest.mark.parametrize("nt,warp", [(128, 32), (8, 4), (4, 2), (2, 1)])
-def test_kernel_header_matches_spec(case, host_lib, nt, warp):
-    """The kernel's arithmetic with tile and warp seams inside the reads
-    (a tile is nt * 8 columns)."""
-    reads, codes, want = case
+def _host_hits(lib, reads, codes, warp):
     R, lens = batch(reads)
     A, alens = adapter_matrix(codes)
     B, C = len(reads), len(codes)
     out = np.zeros((6, B, C), dtype=np.int32)
-    rc = host_lib.adp_hits_host(
+    rc = lib.adp_hits_host(
         R.ctypes.data, lens.ctypes.data, B, R.shape[1], A.ctypes.data,
         alens.ctypes.data, C, A.shape[1], *SCORING, ka.ADAPTER_OVERLAP_TOL,
-        nt, warp, out.ctypes.data)
+        warp, out.ctypes.data)
     assert rc == 0
-    _assert_same(out, want, f"g++ header, {nt} threads, warps of {warp}")
+    return out
+
+
+def _tie_case(seed):
+    """Reads and adapters over two letters (and some N): many equal
+    scores, so every tie rule decides some output."""
+    rng = np.random.default_rng(seed)
+    codes = [rng.choice([0, 1, 1, 4], n).astype(np.int8)
+             for n in (3, 7, 12, 40)]
+    reads = [rng.choice([0, 1, 1, 1, 4], n).astype(np.int8)
+             for n in rng.integers(1, 80, 120)]
+    return reads, codes, NumpyBackend().adapter_hits(
+        reads, codes, [len(c) for c in codes])
+
+
+@pytest.mark.parametrize("warp", [0, 32, 8, 4, 2])
+def test_kernel_header_matches_spec(case, host_lib, warp):
+    """The kernel's wavefront: warp 0 is the packed path (one word a
+    cell), the one the postprocess run takes; otherwise the general path
+    with warps of ``warp`` lanes: the 56-row combos take 2 rows a lane,
+    and narrow warps run them (and the 25-row ones) in passes joined by
+    the carry row.  Then two-letter reads and adapters, where ties decide
+    the payloads."""
+    reads, codes, want = case
+    _assert_same(_host_hits(host_lib, reads, codes, warp), want,
+                 f"g++ header, warps of {warp}")
+    reads, codes, want = _tie_case(len(reads) + warp)
+    _assert_same(_host_hits(host_lib, reads, codes, warp), want,
+                 f"g++ header, two letters, warps of {warp}")
+
+
+@pytest.mark.parametrize("warp", [32, 3])
+def test_kernel_header_long_combo(host_lib, warp):
+    """A combo longer than one pass of the real warp (150 rows: three
+    passes of 64), planted whole, cut, with N codes and twice (ties), and
+    an empty read beside it, against the plain version."""
+    rng = np.random.default_rng(warp)
+    long = sim.random_seq(rng, 150)
+    codes = [encode(long), encode(long[:70] + "NN" + long[72:]),
+             encode(A5)]
+    rs = lambda n: sim.random_seq(rng, n)                      # noqa: E731
+    reads = [encode(s) for s in (
+        rs(40) + long + rs(30), long[:90] + rs(20) + long[60:],
+        long + long, rs(10) + long[:100], "", rs(200))]
+    R, lens = batch(reads)
+    A, alens = adapter_matrix(codes)
+    want = ka.adapter_hits_batch(*(torch.from_numpy(x) for x in
+                                   (R, lens, A, alens)), *SCORING)
+    _assert_same(_host_hits(host_lib, reads, codes, warp), want,
+                 f"g++ header, long combo, warps of {warp}")
+    assert int(want[0][0, 0]) == 150
+
+
+def test_kernel_header_chooses_the_path_read_by_read(host_lib):
+    """warp 0 is the kernel's choice, made read by read: reads of 4095
+    columns and less take the packed path, longer ones (4096 and 4200
+    here) the general path, in one batch; adapters planted across column
+    4095, at both ends, and an empty read beside them."""
+    rng = np.random.default_rng(4095)
+    rs = lambda n: sim.random_seq(rng, n)                      # noqa: E731
+    reads = [encode(s) for s in (
+        rs(4095 - len(A5)) + A5, A5 + rs(4096 - len(A5) - len(A3)) + A3,
+        rs(4080) + A5 + rs(100), A3 + rs(4200 - len(A3) - len(A5)) + A5, "",
+        rs(300) + A5)]
+    assert [len(r) for r in reads[:4]] == [4095, 4096, 4180 + len(A5), 4200]
+    codes = combos(ADAPTER_SETS["default"])
+    R, lens = batch(reads)
+    A, alens = adapter_matrix(codes)
+    want = ka.adapter_hits_batch(*(torch.from_numpy(x) for x in
+                                   (R, lens, A, alens)), *SCORING)
+    _assert_same(_host_hits(host_lib, reads, codes, 0), want,
+                 "g++ header, reads either side of the packed limit")
+    assert int(want[1][2].max()) > 4095
+
+
+def test_timing_tool_counts_the_batch_and_reads_step_loops():
+    """tools/adapters_time: the batch's cells, its 1024-column tail and
+    wavefront steps; the step loops of a SASS listing (innermost loops
+    with a byte permute), with their shuffles and local memory ops."""
+    from c3poa_tpu_torch.tools import adapters_time
+    lens = torch.tensor([1500, 1024, 10, 0], dtype=torch.int32)
+    alens = torch.tensor([25, 56], dtype=torch.int32)
+    st = adapters_time.batch_stats(lens, alens)
+    assert st["cells"] == 2534 * 81 and st["cut_cells"] == 2048 * 81
+    assert st["tile_cells_past_end"] == (4096 - 2534) / 4096
+    assert st["warp_steps"] == sum(n + 24 + n + 27 for n in (1500, 1024,
+                                                             10, 0))
+    listing = [(0x00, "MOV R1, R2"), (0x10, "PRMT R3, R4, R5, 0x80"),
+               (0x20, "SHFL.UP PT, R6, R3, 0x1, RZ"),
+               (0x30, "LDL R7, [R1+0x4]"), (0x40, "@P0 BRA 0x10"),
+               (0x50, "@P1 BRA 0x0"), (0x60, "@P1 BRA 0x70"),
+               (0x70, "EXIT")]
+    assert adapters_time.sweep_loops(listing) == [(4, 1, 1, 1)]

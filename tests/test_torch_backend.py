@@ -3,6 +3,9 @@ backend and the JAX backend: locate results and alignment records,
 including forced host reruns, overlong reads, the zero-repeat scoring,
 fast-band escalation and the batching."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -12,12 +15,16 @@ from c3poa_tpu.consensus.engine import ConsensusParams, zero_params
 from c3poa_tpu.pipeline.backend import Combo, NumpyBackend
 from c3poa_tpu.pipeline.tpu_backend import TpuBackend
 from c3poa_tpu.utils import encode, revcomp_encoded
+from c3poa_tpu_torch.kernels import banded as tbk
 from c3poa_tpu_torch.kernels import peaks as tpk
+from c3poa_tpu_torch.kernels import sw_profile as tsw
 from c3poa_tpu_torch.pipeline import torch_backend as tbe
 from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
 from c3poa_tpu_torch.utils import prof
 
 torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -74,6 +81,21 @@ def test_locate_many_overlong_reads_host_path(located_reads, monkeypatch):
     n_long = sum(len(c) > limit for c in enc)
     assert n_long and \
         prof.current.counts["overlong_reads_host_located"] == n_long
+    _assert_same_located(got, want)
+
+
+def test_locate_many_long_splint_host_path(located_reads, monkeypatch):
+    """A combo set the profile kernel's tiles do not take (here: the
+    limit lowered under the 200 bp splints) is located on the host, on
+    the CPU as on the card."""
+    enc, combos, want = located_reads
+    assert tsw.profile_fits(224)
+    monkeypatch.setattr(tsw, "MAX_OVERLAP", 256)
+    assert not tsw.profile_fits(224)
+    prof.reset()
+    got = TorchBackend("cpu").locate_many(enc, combos, 500)
+    assert prof.current.counts["long_splint_host_located"] == len(enc)
+    assert "locate_launches" not in prof.current.counts
     _assert_same_located(got, want)
 
 
@@ -148,3 +170,40 @@ def test_output_does_not_depend_on_batching(located_reads, monkeypatch):
     b = _snap(small.align_many(pairs, p))
     assert prof.current.counts["align_launches"] >= 4
     _assert_same_records(a, b)
+
+
+def test_fwd_max_target_is_the_kernel_staging_limit():
+    """FWD_MAX_TARGET is the widest target row whose 4-bit staging
+    (csrc/banded.cuh:bnd_target_words) fits csrc/banded.cu's
+    FWD_SHARED_BYTES, at every band."""
+    src = open(os.path.join(ROOT, "c3poa_tpu_torch", "kernels", "csrc",
+                            "banded.cu")).read()
+    m = re.search(r"FWD_SHARED_BYTES = (\d+) \* 1024;", src)
+    assert int(m.group(1)) * 1024 == tbk.FWD_SHARED_BYTES
+
+    def staged_bytes(nt, W):
+        return (max(nt + 1, W) // 8 + 2) * 4
+
+    for W in tbk.CUDA_BANDS:
+        assert staged_bytes(tbk.FWD_MAX_TARGET, W) <= tbk.FWD_SHARED_BYTES
+        assert staged_bytes(tbk.FWD_MAX_TARGET + 1, W) > \
+            tbk.FWD_SHARED_BYTES
+
+
+@pytest.mark.parametrize("scoring", ["main", "zero"])
+def test_align_many_overlong_targets_host_path(monkeypatch, scoring):
+    """Pairs whose target (padded as launched) is wider than the forward
+    kernel stages take the host aligner, on the CPU as on the card (here:
+    the limit lowered to 640 columns)."""
+    p = ConsensusParams()
+    if scoring == "zero":
+        p = zero_params(p, p.band)
+    pairs = _pairs(5)
+    monkeypatch.setattr(tbk, "FWD_MAX_TARGET", 640)
+    n_long = sum(-(-len(pr[2]) // 64) * 64 > 640 and
+                 len(pr[2]) <= 2 * len(pr[0]) + 1 for pr in pairs)
+    assert 0 < n_long < len(pairs)
+    prof.reset()
+    got = _snap(TorchBackend("cpu").align_many(pairs, p))
+    assert prof.current.counts["align_overlong_host"] == n_long
+    _assert_same_records(got, _snap(NumpyBackend().align_many(pairs, p)))

@@ -2,8 +2,9 @@
 card, at shapes and edge cases the consensus and postprocess runs rarely
 reach: every band width the forward kernel is built for, both scorings,
 dummy and empty pairs, band shifts beyond SMAX, long splints, tile seams,
-the adapter hits' ties, dimers, N codes, short and empty reads, and the
-two probe kernels at the int16 extremes, every mode at the smallest and
+the adapter hits' ties, dimers, N codes, short and empty reads, combos
+longer than one pass and a read of the widest payload, the host routes
+for long targets and long splints, and the two probe kernels at the int16 extremes, every mode at the smallest and
 largest M they are built for, and int32 overflow.
 
 Needs a CUDA card and nvcc; skips without them.  This file imports no
@@ -194,10 +195,17 @@ def test_kernel_wrappers_reject_what_they_cannot_take(dev):
         start_profile_cuda(Q[:, :40].contiguous(), S, lens)
     with pytest.raises(ValueError, match="int8"):
         start_profile_cuda(Q.to(torch.int32), S, lens)
+    with pytest.raises(ValueError, match="target width"):
+        T = torch.full((2, tb.FWD_MAX_TARGET + 1), 4, dtype=torch.int8,
+                       device=dev)
+        tb.banded_fwd_cuda(Q, T, lens, lens, band=64)
     from c3poa_tpu_torch.kernels.adapters import adapter_hits_cuda
     alens = torch.full((1,), 32, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        adapter_hits_cuda(Q[:, :60].contiguous(), lens, S, alens, 1, -3, 3)
+    with pytest.raises(ValueError, match="signed byte"):
+        adapter_hits_cuda(Q, lens, S, alens, 200, -3, 3)
+    with pytest.raises(ValueError, match="exceed 8191"):
+        wide = torch.full((1, 128), 4, dtype=torch.int8, device=dev)
+        adapter_hits_cuda(Q, lens, wide, alens, 127, -3, 3)
     with pytest.raises(ValueError, match="exceed"):
         adapter_hits_cuda(Q, lens, S, alens + 1, 1, -3, 3)
 
@@ -264,8 +272,10 @@ def test_adapter_kernel_matches_plain(dev, adapters, extra, rows):
 @pytest.mark.parametrize("L,seed", [(0, 0), (1024, 1), (5000, 2),
                                     (131072, 3)])
 def test_adapter_kernel_long_and_empty_reads(dev, L, seed):
-    """Tile seams (hits planted across 1024-column tiles), a read at the
-    backend's length limit, and an empty read beside them."""
+    """Hits planted across 1024-column seams, a read at the backend's
+    length limit, and an empty read beside them: a read over 4095 columns
+    takes the general path while the short ones beside it take the packed
+    path."""
     from c3poa_tpu_torch.kernels import adapters as ka
     rng = np.random.default_rng(seed)
     codes = combos(ADAPTER_SETS["default"])
@@ -281,6 +291,97 @@ def test_adapter_kernel_long_and_empty_reads(dev, L, seed):
     want = ka.adapter_hits_batch(*args, *sc)
     for name, a, b in zip("s1 j1 qe1 ts1 qs1 s2".split(), got, want):
         _same(a, b, name)
+
+
+@pytest.mark.parametrize("rows", [65, 150])
+def test_adapter_kernel_combo_longer_than_one_pass(dev, rows):
+    """Combos of 65 and 150 rows (two and three passes of the warp's 64
+    rows, the carry row between them) beside the 25- and 56-row ones,
+    planted whole, cut and twice."""
+    from c3poa_tpu_torch.kernels import adapters as ka
+    rng = np.random.default_rng(rows)
+    long = sim.random_seq(rng, rows)
+    codes = combos(ADAPTER_SETS["default"]) + [encode(long),
+                                               revcomp_encoded(encode(long))]
+    rs = lambda n: sim.random_seq(rng, n)                      # noqa: E731
+    reads = [encode(x) for x in (rs(40) + long + rs(300), long + long,
+                                 long[:50] + rs(9) + long[40:], rs(900), "")]
+    reads += edge_reads(seed=rows)
+    args = _adapter_args(dev, reads, codes)
+    sc = NumpyBackend.ADAPTER_SCORING
+    got = ka.adapter_hits_cuda(*args, *sc)
+    want = ka.adapter_hits_batch(*args, *sc)
+    for name, a, b in zip("s1 j1 qe1 ts1 qs1 s2".split(), got, want):
+        _same(a, b, name)
+    assert int(want[0][0, 4]) == rows
+
+
+def test_adapter_kernel_one_read_at_max_columns(dev):
+    """B = 1, a read of MAX_COLUMNS bases (the payload's 18 bits full)
+    with adapters planted near both ends."""
+    from c3poa_tpu_torch.kernels import adapters as ka
+    rng = np.random.default_rng(11)
+    L = ka.MAX_COLUMNS
+    seq = list(sim.random_seq(rng, L))
+    a5 = sim.DEFAULT_ADAPTERS["5Prime_adapter"]
+    for at in (3, L - len(a5) - 1):
+        seq[at:at + len(a5)] = a5
+    R = torch.from_numpy(np.array([encode("".join(seq))], dtype=np.int8))
+    A, alens = adapter_matrix(combos(ADAPTER_SETS["default"]))
+    args = [x.to(dev) for x in (R, torch.tensor([L], dtype=torch.int32),
+                                torch.from_numpy(A), torch.from_numpy(alens))]
+    sc = NumpyBackend.ADAPTER_SCORING
+    got = ka.adapter_hits_cuda(*args, *sc)
+    want = ka.adapter_hits_batch(*args, *sc)
+    for name, a, b in zip("s1 j1 qe1 ts1 qs1 s2".split(), got, want):
+        _same(a, b, name)
+    assert int(want[0][0, 2]) == len(a5) and int(want[3][0, 2]) == 3
+
+
+def test_backend_long_target_and_long_splint_on_card(dev):
+    """A pair whose target is one base over the forward kernel's staging
+    limit goes to the host aligner beside a pair the kernel takes; a
+    splint too long for the profile kernel's tiles is located on the
+    host; both equal the numpy backend."""
+    from c3poa_tpu_torch.consensus.engine import ConsensusParams
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.kernels.banded import FWD_MAX_TARGET
+    from c3poa_tpu_torch.kernels.sw_profile import profile_fits
+    from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
+    from c3poa_tpu_torch.utils import prof
+    rng = np.random.default_rng(12)
+    pairs = []
+    for n in (FWD_MAX_TARGET + 1, 700):
+        t = sim.random_seq(rng, n)
+        q = sim.mutate(rng, t, 0.02, 0.01, 0.01)
+        pairs.append((encode(q), np.full(len(q), 20, np.int8), encode(t)))
+    p = ConsensusParams()
+    prof.reset()
+    _build.reset_counts()
+    got = [tuple(np.array(f) for f in x.rec)
+           for x in TorchBackend(dev).align_many(pairs, p)]
+    assert prof.current.counts["align_overlong_host"] == 1
+    assert _build.launch_counts()["banded_fwd_cuda"] == 1
+    want = [tuple(np.array(f) for f in x.rec)
+            for x in NumpyBackend().align_many(pairs, p)]
+    for x, y in zip(got, want):
+        for u, v in zip(x, y):
+            np.testing.assert_array_equal(u, v)
+
+    splint = sim.random_seq(rng, 2600)
+    assert not profile_fits(-(-len(splint) // 32) * 32)
+    codes = encode(splint)
+    cmb = [Combo("s", "+", codes, len(codes)),
+           Combo("s", "-", revcomp_encoded(codes), len(codes))]
+    reads = [encode(sim.random_seq(rng, 400) + splint[:1500] +
+                    sim.random_seq(rng, 9000) + splint + sim.random_seq(
+                        rng, 9000)), encode(sim.random_seq(rng, 5000))]
+    prof.reset()
+    a = TorchBackend(dev).locate_many(reads, cmb, 500)
+    assert prof.current.counts["long_splint_host_located"] == 2
+    for x, y in zip(a, NumpyBackend().locate_many(reads, cmb, 500)):
+        assert (x.combo, x.score) == (y.combo, y.score)
+        np.testing.assert_array_equal(x.peaks, y.peaks)
 
 
 def test_adapter_backend_on_card_matches_numpy(dev):

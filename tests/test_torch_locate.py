@@ -105,18 +105,52 @@ def test_masked_median_matches_numpy():
 
 
 @pytest.mark.parametrize("tile", [64, 16, 1])
-def test_peak_candidates_match_jax(bench_profiles, tile):
-    """Same float32 input -> identical candidates and flags."""
+def test_peak_candidates_match_jax(bench_profiles, tile, monkeypatch):
+    """Same float32 input -> identical candidates and flags; the port's
+    margin flags are a superset of the JAX package's (its structure
+    margin is never narrower), and equal to them with the relative term
+    off."""
     _enc, _combos, profs = bench_profiles
     X, lens = _profile_block(profs)
     sm = np.array(jax_smooth(X, lens))
-    got = tpk.peak_candidates_batch(torch.from_numpy(sm),
-                                    torch.from_numpy(lens), tile=tile)
+    args = (torch.from_numpy(sm), torch.from_numpy(lens))
+    got = tpk.peak_candidates_batch(*args, tile=tile)
     want = jpk.peak_candidates_batch(sm, lens, tile=tile)
     for name, a, b in zip(("cand_pos", "cand_h", "med", "height", "gated",
-                           "deep", "margin"), got, want):
+                           "deep"), got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b),
                                       err_msg=name)
+    assert not (np.asarray(want[6]) & ~got[6].numpy()).any()
+    monkeypatch.setattr(tpk, "STRUCT_REL", 0.0)
+    np.testing.assert_array_equal(
+        tpk.peak_candidates_batch(*args, tile=tile)[6].numpy(),
+        np.asarray(want[6]))
+
+
+def _two_peaks(step):
+    """A smoothed row of 600 columns with a 450 bp splint's heights: a
+    background of 10 (median 10, height cut 30) and two peaks of ~420,
+    each a strict local maximum, the second rising into its top by
+    ``step``."""
+    x = np.full((1, 640), 10.0, dtype=np.float32)
+    for c in (150, 400):
+        x[0, c - 20:c + 21] = 420.0 - np.abs(np.arange(-20, 21)) * 5.0
+    x[0, 399] = np.float32(420.0) - np.float32(step)
+    return torch.from_numpy(x), torch.tensor([600], dtype=torch.int32)
+
+
+def test_structure_margin_scales_with_height(monkeypatch):
+    """Adjacent above-threshold values 6e-4 apart at a height of 420: over
+    STRUCT_ATOL, inside the relative margin (STRUCT_REL * 420 = 8.4e-4,
+    2.3x the 2.6e-4 error measured at a 450 bp splint), so the read is
+    flagged for the exact host rerun; with the absolute margin alone it is
+    not, and far from the flip zone it is not either."""
+    x, lens = _two_peaks(6e-4)
+    assert 6e-4 > tpk.STRUCT_ATOL and 6e-4 < tpk.STRUCT_REL * 420
+    assert bool(tpk.peak_candidates_batch(x, lens)[6][0])
+    assert not bool(tpk.peak_candidates_batch(*_two_peaks(0.5))[6][0])
+    monkeypatch.setattr(tpk, "STRUCT_REL", 0.0)
+    assert not bool(tpk.peak_candidates_batch(x, lens)[6][0])
 
 
 def test_locate_device_matches_jax():
@@ -167,8 +201,9 @@ def test_long_splint_locate_matches_numpy():
 
 
 def test_host_helper_copies_match_originals():
-    assert (tpk.MARGIN_REL, tpk.ORDER_REL, tpk.STRUCT_ATOL) == \
-        (jpk.MARGIN_REL, jpk.ORDER_REL, jpk.STRUCT_ATOL)
+    assert (tpk.MARGIN_REL, tpk.ORDER_REL) == (jpk.MARGIN_REL, jpk.ORDER_REL)
+    # the structure margin: the JAX package's absolute one is the floor
+    assert tpk.STRUCT_ATOL == jpk.STRUCT_ATOL and tpk.STRUCT_REL > 0
     assert tpk.NEG_F == float(jpk.NEG_F)
     for d in (0, 1, 2, 3, 40, 64, 65, 500, 10 ** 6):
         assert tpk.tile_for_distance(d) == jpk.tile_for_distance(d)

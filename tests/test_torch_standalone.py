@@ -77,12 +77,14 @@ import c3poa_tpu_torch.cli
 import c3poa_tpu_torch.cli_postprocess
 import c3poa_tpu_torch.pipeline.torch_backend
 import c3poa_tpu_torch.pipeline.postprocess
+import c3poa_tpu_torch.tools.adapters_time
 import c3poa_tpu_torch.tools.banded_sass
 import c3poa_tpu_torch.tools.banded_chain
 import c3poa_tpu_torch.tools.demux_nextera_tso
 import c3poa_tpu_torch.tools.floor_probe
 import c3poa_tpu_torch.tools.int16_probe
 import c3poa_tpu_torch.tools.make_example
+import c3poa_tpu_torch.tools.smooth_error
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split('.')[0] in ('jax', 'jaxlib', 'c3poa_tpu'))
