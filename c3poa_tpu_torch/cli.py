@@ -1,13 +1,17 @@
 """``python -m c3poa_tpu_torch.cli`` — the c3poa consensus run on PyTorch.
 
 The flag surface of ``c3poa_tpu/cli.py`` (that of the reference's
-C3POa.py:26-63) without the multi-host flags, and with
-``--backend {cuda,cpu,numpy}`` (default cuda):
+C3POa.py:26-63), with ``--backend {cuda,cpu,numpy}`` (default cuda):
 - cuda: the hand-written CUDA kernels on the card; an error if there is
   no usable card (no silent fallback);
 - cpu: the same backend with the plain torch versions on the CPU;
 - numpy: the reference numpy/C backend (this package's copy of
   ``pipeline/backend.py:NumpyBackend``).
+
+Several processes or hosts (``--coordinator``, ``--num_processes``,
+``--process_id``; ``parallel/dist.py``) and several devices in one
+process (``--mesh_devices``; ``parallel/mesh.py``) follow the original's
+rules.
 """
 
 from __future__ import annotations
@@ -61,6 +65,24 @@ def parse_args(argv=None):
     parser.add_argument("--backend", type=str, default="cuda",
                         choices=["cuda", "cpu", "numpy"],
                         help="Compute backend (default: cuda).")
+    parser.add_argument("--mesh_devices", type=str, default="auto",
+                        help="Devices to use in THIS process: 'auto' (all "
+                             "local cards for --backend cuda, one for "
+                             "cpu), '1' (single device), or an explicit "
+                             "count.  >1 cuts every kernel batch into one "
+                             "share a device (single-host multi-card; "
+                             "combine with --num_processes for "
+                             "multi-host).")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="Multi-host: coordinator address "
+                             "(host:port) for torch.distributed.")
+    parser.add_argument("--num_processes", type=int, default=1,
+                        help="Multi-host: total number of host processes; "
+                             "read groups shard round-robin and host 0 "
+                             "merges the per-host trees byte-identically "
+                             "to a single-host run.")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="Multi-host: this process's index.")
     parser.add_argument("--rss-restart-mb", type=int, default=0,
                         help="Bound process memory: exit cleanly at a "
                              "group checkpoint once RSS exceeds this many "
@@ -74,14 +96,32 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def pick_backend(name: str):
+def pick_backend(name: str, mesh_devices: str = "1"):
     if name == "numpy":
         from .pipeline.backend import NumpyBackend
         return NumpyBackend()
     if name in ("cuda", "cpu"):
         from .pipeline.torch_backend import TorchBackend
-        return TorchBackend(name)
+        return TorchBackend(name, devices=local_devices(name, mesh_devices))
     raise ValueError(name)
+
+
+def local_devices(kind: str, mesh_devices: str = "auto"):
+    """This process's devices for ``--mesh_devices``, or None for the
+    single-device path (the role of ``c3poa_tpu/cli.py:_local_mesh``):
+    'auto' is every local card for cuda and one device for cpu; an
+    explicit count on the CPU repeats the one CPU (a dry run of the
+    sharding)."""
+    if mesh_devices in ("off", "0", "1"):
+        return None
+    import torch
+
+    local = torch.cuda.device_count() if kind == "cuda" else 1
+    n = local if mesh_devices == "auto" else int(mesh_devices)
+    if n <= 1:
+        return None
+    from .parallel.mesh import mesh_devices as devices_of
+    return devices_of(n, kind)
 
 
 def supervise(argv, module="c3poa_tpu_torch.cli"):
@@ -130,13 +170,25 @@ def main(argv=None):
                   "platform (/proc/self/status unreadable); the memory "
                   "bound will never trigger", file=sys.stderr)
             sys.exit(1)
-        if args.compress_output:
+        if args.compress_output or args.num_processes > 1:
             print("--rss-restart-mb needs the resume manifest: not "
-                  "supported with -co", file=sys.stderr)
+                  "supported with -co or --num_processes > 1 (compress "
+                  "at the end, or bound each host's run separately)",
+                  file=sys.stderr)
             sys.exit(1)
         if os.environ.get("C3POA_SUPERVISED") != "1":
             return supervise(argv if argv is not None else sys.argv[1:],
                              module="c3poa_tpu_torch.cli")
+    from .parallel import dist
+    process_index, process_count = dist.initialize(
+        args.coordinator, args.num_processes, args.process_id)
+    try:
+        return _run(args, process_index, process_count)
+    finally:
+        dist.shutdown()
+
+
+def _run(args, process_index: int, process_count: int) -> int:
     group_size = args.groupSize
     if args.blatThreads and args.numThreads > 1:
         # reference -b: chunk = reads // threads (bin/preprocess.py:81-84)
@@ -152,10 +204,18 @@ def main(argv=None):
         num_threads=args.numThreads,
         compress=args.compress_output,
         resume=args.resume,
+        process_index=process_index,
+        process_count=process_count,
         rss_restart_mb=args.rss_restart_mb,
         cons=ConsensusParams(),
     )
-    backend = pick_backend(args.backend)
+    # 'auto' uses all local cards only in single-process runs; under
+    # --num_processes, pass an explicit --mesh_devices count to shard
+    # each process's groups over its own local cards too
+    mesh_devices = args.mesh_devices
+    if process_count > 1 and mesh_devices == "auto":
+        mesh_devices = "1"
+    backend = pick_backend(args.backend, mesh_devices)
     from .utils.mem import RESTART_EXIT_CODE, RssRestartNeeded
     try:
         stats = run_pipeline(args.reads, args.splint_file, args.out_path,

@@ -3,7 +3,8 @@ run on PyTorch.
 
 The flag surface of ``c3poa_tpu/cli_postprocess.py`` (that of the
 reference postprocessor, C3POa_postprocessing.py:17-62: -i -o -a -x -c
--u -t -b -n -g -bt -co -v) without the multi-host flags, and with
+-u -t -b -n -g -bt -co -v, and the original's --mesh_devices,
+--coordinator, --num_processes and --process_id, with its rules), with
 ``--backend {cuda,cpu,numpy}`` (default cuda) picked as in ``cli``: no
 probe, no fallback.  -c/-bt are accepted and ignored (no external
 binaries).
@@ -59,6 +60,22 @@ def parse_args(argv=None):
     parser.add_argument("--backend", type=str, default="cuda",
                         choices=["cuda", "cpu", "numpy"],
                         help="Compute backend (default: cuda).")
+    parser.add_argument("--mesh_devices", type=str, default="auto",
+                        help="Devices for this process: 'auto' (all local "
+                             "cards for cuda, one for cpu), '1', or a "
+                             "count (see cli).")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="Multi-host: coordinator address "
+                             "(host:port) for torch.distributed.")
+    parser.add_argument("--num_processes", type=int, default=1,
+                        help="Multi-host: total number of host processes; "
+                             "read groups shard round-robin and host 0 "
+                             "merges the per-host trees byte-identically "
+                             "to a single-host run (the reference "
+                             "parallelizes postprocessing too, "
+                             "C3POa_postprocessing.py:128-216).")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="Multi-host: this process's index.")
     parser.add_argument("--rss-restart-mb", type=int, default=0,
                         help="Bound process memory: exit cleanly at a "
                              "group checkpoint once RSS exceeds this many "
@@ -89,19 +106,35 @@ def main(argv=None):
                   "platform (/proc/self/status unreadable); the memory "
                   "bound will never trigger", file=sys.stderr)
             sys.exit(1)
-        if args.compress_output:
+        if args.compress_output or args.num_processes > 1:
             print("--rss-restart-mb needs the resume manifest: not "
-                  "supported with -co", file=sys.stderr)
+                  "supported with -co or --num_processes > 1",
+                  file=sys.stderr)
             sys.exit(1)
         if os.environ.get("C3POA_SUPERVISED") != "1":
             return supervise(argv if argv is not None else sys.argv[1:],
                              module="c3poa_tpu_torch.cli_postprocess")
-    backend = pick_backend(args.backend)
+    from .parallel import dist
+    process_index, process_count = dist.initialize(
+        args.coordinator, args.num_processes, args.process_id)
+    try:
+        return _run(args, process_index, process_count)
+    finally:
+        dist.shutdown()
+
+
+def _run(args, process_index: int, process_count: int) -> int:
+    # 'auto' uses all local cards only in single-process runs (see cli)
+    mesh_devices = args.mesh_devices
+    if process_count > 1 and mesh_devices == "auto":
+        mesh_devices = "1"
+    backend = pick_backend(args.backend, mesh_devices)
     cfg = PostprocessConfig(
         undirectional=args.undirectional, trim=args.trim,
         barcoded=args.barcoded, group_size=args.groupSize,
         threads=args.threads, compress=args.compress_output,
-        resume=args.resume, rss_restart_mb=args.rss_restart_mb)
+        resume=args.resume, rss_restart_mb=args.rss_restart_mb,
+        process_index=process_index, process_count=process_count)
     from .utils.mem import RESTART_EXIT_CODE, RssRestartNeeded
     try:
         stats = run_postprocess(args.input_fasta_file, args.output_path,

@@ -56,9 +56,9 @@ class PostprocessConfig:
                                   # reference's PSL-cache role,
                                   # C3POa_postprocessing.py:231)
     score_min: int = 10           # BLAT matches>10 analogue
-    # part of the resume key; a multi-host run (process_count > 1, the
-    # sharding of c3poa_tpu/pipeline/postprocess.py:59-63) raises
-    # (ROADMAP 1.8)
+    # multi-host (same recipe as the consensus pipeline, parallel/dist.py):
+    # host h owns groups gi % process_count == h, writes under
+    # out/host_<h>/, and host 0 merges byte spans by group index
     process_index: int = 0
     process_count: int = 1
     # >0: clean RssRestartNeeded exit at a checkpoint once VmRSS exceeds
@@ -341,12 +341,16 @@ def run_postprocess(input_fasta: str, out_path: str, adapter_fasta: str,
         from .backend import NumpyBackend
         backend = NumpyBackend()
 
-    # c3poa_tpu/pipeline/postprocess.py:344-353 (the out/host_<h>
-    # redirect) is left out: no multi-host run yet (ROADMAP 1.8)
-    if cfg.process_count > 1:
-        raise NotImplementedError(
-            "multi-host runs (process_count > 1) are not ported yet "
-            "(ROADMAP.md item 1.8)")
+    # multi-host: this host works under out/host_<h>/ on its round-robin
+    # share of the groups (reference parallelizes postprocessing too,
+    # C3POa_postprocessing.py:128-216); host trees are written plain and
+    # compressed (if asked) at merge, where spans interleave by group
+    multihost = cfg.process_count > 1
+    root_out = out_path
+    final_compress = cfg.compress
+    if multihost:
+        out_path = os.path.join(out_path, f"host_{cfg.process_index}")
+        cfg = dataclasses.replace(cfg, compress=False)
     os.makedirs(out_path, exist_ok=True)
 
     adapters = [(r.name, r.seq) for r in read_fastx(adapter_fasta)]
@@ -394,6 +398,8 @@ def run_postprocess(input_fasta: str, out_path: str, adapter_fasta: str,
     def checkpoint(gi):
         if not cfg.compress:
             sizes = writers.sizes()
+            if multihost:
+                span_groups.append({"gi": gi, "sizes": sizes})
             with open(manifest_path, "w") as fh:
                 json.dump({"key": key, "groups_done": gi + 1,
                            "files": sizes,
@@ -443,8 +449,18 @@ def run_postprocess(input_fasta: str, out_path: str, adapter_fasta: str,
         progress.close()
         writers.close()
 
-    # c3poa_tpu/pipeline/postprocess.py:452-463 (the multi-host merge) is
-    # left out
+    if multihost:
+        from ..parallel import dist
+
+        # the collective doubles as the completion barrier: when it
+        # returns, every host has closed its output files
+        totals = dist.allreduce_stats(dataclasses.asdict(stats))
+        gstats = PostprocessStats(**totals)
+        if cfg.process_index == 0:
+            dist.merge_host_outputs(root_out, cfg.process_count,
+                                    compress=final_compress,
+                                    manifest=MANIFEST)
+        return gstats
     return stats
 
 

@@ -65,8 +65,8 @@ class PipelineConfig:
                                    # bin/preprocess.py:17)
     splint_min_score: int = 50     # no-splint analogue of BLAT matches>50
                                    # (bin/preprocess.py:32)
-    # part of the resume key; a multi-host run (process_count > 1, the
-    # sharding of c3poa_tpu/pipeline/run.py:68-71) raises (ROADMAP 1.8)
+    # multi-host sharding (parallel/dist.py): host h processes read groups
+    # g with g % process_count == h and writes under out/host_<h>/
     process_index: int = 0
     process_count: int = 1
     # >0: raise RssRestartNeeded after a group checkpoint once VmRSS
@@ -291,12 +291,15 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
     cfg = cfg or PipelineConfig()
     backend = backend or NumpyBackend()
 
-    # c3poa_tpu/pipeline/run.py:294-303 (the out/host_<h> redirect) is
-    # left out: this package has no multi-host run yet (ROADMAP 1.8)
-    if cfg.process_count > 1:
-        raise NotImplementedError(
-            "multi-host runs (process_count > 1) are not ported yet "
-            "(ROADMAP.md item 1.8)")
+    # multi-host: this host works under out/host_<h>/ on its round-robin
+    # share of the groups; host trees are written plain and compressed (if
+    # requested) at merge time, where byte spans interleave by group index
+    multihost = cfg.process_count > 1
+    root_out = out_path
+    final_compress = cfg.compress
+    if multihost:
+        out_path = os.path.join(out_path, f"host_{cfg.process_index}")
+        cfg = dataclasses.replace(cfg, compress=False)
 
     os.makedirs(out_path, exist_ok=True)
     profiler = prof.reset()
@@ -339,6 +342,8 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
     def checkpoint(gi):
         if not cfg.compress:
             sizes = writers.sizes()
+            if multihost:
+                span_groups.append({"gi": gi, "sizes": sizes})
             with open(manifest_path, "w") as fh:
                 json.dump({"key": key, "groups_done": gi,
                            "files": sizes,
@@ -475,7 +480,23 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
     _write_log(out_path, stats)
     profiler.dump(os.path.join(out_path, "c3poa_stats.json"))
 
-    # c3poa_tpu/pipeline/run.py:483-499 (the multi-host merge) is left out
+    if multihost:
+        from ..parallel import dist
+
+        # every host streams the whole fastq, so each counts ALL short
+        # reads — only host 0 contributes them to the global sum
+        contrib = dataclasses.asdict(stats)
+        if cfg.process_index != 0:
+            contrib["short_reads"] = 0
+        # the collective is also the completion barrier: when it returns,
+        # every host has closed its output files
+        totals = dist.allreduce_stats(contrib)
+        gstats = PipelineStats(**totals)
+        if cfg.process_index == 0:
+            dist.merge_host_outputs(root_out, cfg.process_count,
+                                    compress=final_compress)
+            _write_log(root_out, gstats)
+        return gstats
     return stats
 
 

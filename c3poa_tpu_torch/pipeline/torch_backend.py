@@ -16,6 +16,11 @@ so ``run_pipeline`` and ``run_postprocess`` drive it unchanged:
 - ``adapter_hits``: reads are batched longest first through the
   adapter-hits kernel (``kernels/adapters.py``) for postprocessing.
 
+With several ``devices`` (``parallel/mesh.py``, the role of
+``TpuBackend(mesh=...)``), each launch's batch is cut into one
+contiguous share a device, each launched on its device and stream, and
+the shares' outputs are joined in order before the host uses them.
+
 Batching is this backend's own choice (no fixed compile shapes): a batch
 is padded only to its own longest member, and no output depends on how
 the items are batched.
@@ -41,9 +46,10 @@ from ..kernels.banded import (SMAX, banded_align_trace, ops_to_record,
 from ..kernels.locate import locate_device, profile_rows_combo
 from ..kernels.peaks import (margin_competitors_host, select_peaks_host,
                              tile_for_distance)
+from ..parallel.mesh import Mesh
 from ..ref.banded import normalize_record
 from ..ref.peaks import exact_peaks_from_profile
-from ..state import splint_array, to_device
+from ..state import splint_array
 from ..utils import prof
 from .backend import LocateResult, NumpyBackend
 
@@ -74,34 +80,39 @@ def _round_up(n: int, k: int) -> int:
 class TorchBackend:
     supports_overlap = True
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", devices=None):
         """``device``: "cuda", "cuda:N" or "cpu" (no fallback between
-        them)."""
-        self.device = resolve_device(device)
+        them).  ``devices``: the devices of this process to cut every
+        launch over (of ``device``'s type; may repeat one), default
+        ``[device]``."""
+        device = resolve_device(device)
+        devices = [torch.device(d) for d in devices or [device]]
+        if any(d.type != device.type for d in devices):
+            raise ValueError(f"devices {[str(d) for d in devices]} are not "
+                             f"all {device.type}")
+        self.mesh = Mesh(devices)
         self._splint_lock = threading.Lock()
         self._splint_cache: dict = {}
 
-    def _splints(self, combos) -> torch.Tensor:
+    def _splints(self, combos) -> tuple[np.ndarray, dict]:
+        """(C, m) splint codes, and {device: their tensor}."""
         key = tuple(id(c.codes) for c in combos)
         with self._splint_lock:
             hit = self._splint_cache.get(key)
             if hit is None:
-                # the combos are kept with the tensor so their ids stay
+                # the combos are kept with the tensors so their ids stay
                 # theirs while the entry lives
-                hit = (tuple(combos),
-                       to_device(splint_array(combos), self.device))
+                S = splint_array(combos)
+                hit = (tuple(combos), S, self.mesh.replicate(S))
                 self._splint_cache[key] = hit
-            return hit[1]
-
-    def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
-        return to_device(arr, self.device)
+            return hit[1], hit[2]
 
     # ---------------- locate ----------------
 
     def locate_many(self, reads, combos, min_dist) -> list[LocateResult]:
-        S = self._splints(combos)
+        S_np, S = self._splints(combos)
         C = len(combos)
-        if not sw_profile.profile_fits(S.shape[1]):
+        if not sw_profile.profile_fits(S_np.shape[1]):
             # splints too long for the profile kernel's tiles: every read
             # takes the exact host path, on both devices
             prof.current.count("long_splint_host_located", len(reads))
@@ -124,14 +135,15 @@ class TorchBackend:
             prof.current.count("locate_launches")
             prof.current.count("locate_cells_padded", R.size * C)
             prof.current.count("locate_cells_real", int(lens.sum()) * C)
-            launches.append((chunk, locate_device(
-                self._to_dev(R), self._to_dev(lens), S, tile=tile)))
+            launches.append((chunk, self.mesh.dispatch(
+                lambda dev, r, ln: locate_device(r, ln, S[dev], tile=tile),
+                R, lens)))
 
         deep_rerun: list[int] = []
         margin_rerun: list[int] = []
         for chunk, res in launches:
-            combo, score, cand_pos, cand_h, _med, deep, marg = (
-                x.cpu().numpy() for x in res)
+            combo, score, cand_pos, cand_h, _med, deep, marg = \
+                self.mesh.gather(res)
             peaks = select_peaks_host(cand_pos, cand_h, int(min_dist))
             marg = marg | margin_competitors_host(cand_pos, cand_h,
                                                   int(min_dist))
@@ -143,7 +155,7 @@ class TorchBackend:
                 elif marg[r]:
                     margin_rerun.append(i)
         if deep_rerun or margin_rerun:
-            self._rerun_flagged(reads, out, S, deep_rerun, margin_rerun,
+            self._rerun_flagged(reads, out, S, C, deep_rerun, margin_rerun,
                                 min_dist)
         return out
 
@@ -166,7 +178,7 @@ class TorchBackend:
                 lens[r] = len(reads[i])
             yield chunk, R, lens
 
-    def _rerun_flagged(self, reads, out, S, deep_rerun, margin_rerun,
+    def _rerun_flagged(self, reads, out, S, C, deep_rerun, margin_rerun,
                        min_dist):
         """deep: a tile held more than the 2 candidates the compaction
         keeps; margin: an f32 decision sat within the f32-vs-f64 flip
@@ -179,14 +191,14 @@ class TorchBackend:
             prof.current.count("peaks_margin_host_rerun", len(margin_rerun))
         fetches = []
         for chunk, R, lens in self._read_batches(
-                reads, deep_rerun + margin_rerun, S.shape[0],
-                MAX_LOCATE_BATCH):
+                reads, deep_rerun + margin_rerun, C, MAX_LOCATE_BATCH):
             combo = np.asarray([out[i].combo for i in chunk], dtype=np.int32)
-            fetches.append((chunk, lens, profile_rows_combo(
-                self._to_dev(R), self._to_dev(lens), S,
-                self._to_dev(combo))))
-        for chunk, lens, rows in fetches:
-            rows = rows.cpu().numpy()
+            fetches.append((chunk, lens, self.mesh.dispatch(
+                lambda dev, r, ln, cb: (profile_rows_combo(r, ln, S[dev],
+                                                           cb),),
+                R, lens, combo)))
+        for chunk, lens, res in fetches:
+            (rows,) = self.mesh.gather(res)
             for r, i in enumerate(chunk):
                 pks = exact_peaks_from_profile(rows[r, :lens[r]], min_dist)
                 out[i] = LocateResult(out[i].combo, out[i].score,
@@ -209,9 +221,9 @@ class TorchBackend:
         A = np.full((C, max(len(c) for c in combo_codes)), 4, dtype=np.int8)
         for c, codes in enumerate(combo_codes):
             A[c, :len(codes)] = codes
-        A = self._to_dev(A)
-        alens = self._to_dev(np.asarray([len(c) for c in combo_codes],
-                                        dtype=np.int32))
+        A = self.mesh.replicate(A)
+        alens = self.mesh.replicate(np.asarray([len(c) for c in combo_codes],
+                                               dtype=np.int32))
         overlong = [i for i, r in enumerate(reads) if len(r) > MAX_READ_LEN]
         if overlong:
             host = NumpyBackend().adapter_hits(
@@ -224,12 +236,13 @@ class TorchBackend:
                 reads, [i for i, r in enumerate(reads)
                         if len(r) <= MAX_READ_LEN], C,
                 MAX_ADAPTER_BATCH):
-            launches.append((chunk, adapter_hits(
-                self._to_dev(R), self._to_dev(lens), A, alens,
-                *NumpyBackend.ADAPTER_SCORING)))
+            launches.append((chunk, self.mesh.dispatch(
+                lambda dev, r, ln: adapter_hits(
+                    r, ln, A[dev], alens[dev],
+                    *NumpyBackend.ADAPTER_SCORING), R, lens)))
         for chunk, res in launches:
-            for k, x in enumerate(res):
-                outs[k][chunk] = x.cpu().numpy()
+            for k, x in enumerate(self.mesh.gather(res)):
+                outs[k][chunk] = x
         return outs
 
     # ---------------- align ----------------
@@ -315,11 +328,11 @@ class TorchBackend:
                 ql[r], tl[r] = len(q), len(t)
             prof.current.count("align_launches")
             prof.current.count("align_cells_padded", P * nq * W)
-            res = banded_align_trace(
-                self._to_dev(Q), self._to_dev(T), self._to_dev(ql),
-                self._to_dev(tl), band=W, match=params.match,
-                mismatch=params.mismatch, gap_open=params.gap_open,
-                gap_ext=params.gap_ext)
+            res = self.mesh.dispatch(
+                lambda _dev, q, t, a, b: banded_align_trace(
+                    q, t, a, b, band=W, match=params.match,
+                    mismatch=params.mismatch, gap_open=params.gap_open,
+                    gap_ext=params.gap_ext), Q, T, ql, tl)
             launches.append((W, chunk, res))
 
         leftovers = []            # python-fallback work items
@@ -329,8 +342,10 @@ class TorchBackend:
         # record build of launch k overlaps the device computing k + 1
         for li, (W, chunk, res) in enumerate(launches):
             with prof.current.stage("align_wait"):
-                scores, j_ends, _j_starts, i_rem, ops, edge = (
-                    x.cpu().numpy() for x in res)
+                # one launch's shares joined before its records are built:
+                # a share spends no record-arena phase of its own
+                scores, j_ends, _j_starts, i_rem, ops, edge = \
+                    self.mesh.gather(res)
             fast = W < params.band
             work = []
             for r, i in enumerate(chunk):

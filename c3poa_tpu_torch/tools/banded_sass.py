@@ -2,6 +2,9 @@
 
     python -m c3poa_tpu_torch.tools.banded_sass [W=128]
 
+(``row_pipes`` reads the row loop of any kernel the same way;
+``chip_smoke.py`` reads the profile kernel's with it.)
+
 Reads ``cuobjdump -sass`` of the built ``kernels/csrc/banded.cu`` (needs
 nvcc and cuobjdump; no card), finds the row loop of the forward kernel's
 instance for band W — the innermost loop that holds a warp shuffle, the
@@ -91,13 +94,15 @@ def _unconditional(insn: str) -> bool:
     return op.startswith(("BRA", "BRX", "JMP", "JMX", "EXIT", "RET"))
 
 
-def loops_of(body):
+def loops_of(body, skip_exits: int = 0):
     """(head, tail) address pairs of the backward branches of a kernel,
     up to its first unconditional EXIT (what follows is out-of-line code:
     the divergent arms of BRA.DIV and called subroutines, which branch
-    back into the body without being loops)."""
-    end = next((a for a, i in body if _unconditional(i) and
-                _build.sass_mnemonic(i).startswith("EXIT")), None)
+    back into the body without being loops); ``skip_exits`` unconditional
+    EXITs before it are passed over (early returns)."""
+    exits = [a for a, i in body if _unconditional(i) and
+             _build.sass_mnemonic(i).startswith("EXIT")]
+    end = exits[skip_exits] if len(exits) > skip_exits else None
     out = []
     for addr, insn in body:
         if end is not None and addr > end:
@@ -109,14 +114,15 @@ def loops_of(body):
     return out
 
 
-def row_loop(body):
+def row_loop(body, skip_exits: int = 0):
     """The row loop: of the loops that hold a shuffle and no other loop
-    that holds one, the one with the most instructions."""
+    that holds one, the one with the most instructions (``loops_of``
+    says which EXIT ends the search)."""
     def has_shfl(lo, hi):
         return any(lo <= a <= hi and
                    _build.sass_mnemonic(i).startswith("SHFL")
                    for a, i in body)
-    loops = [lp for lp in loops_of(body) if has_shfl(*lp)]
+    loops = [lp for lp in loops_of(body, skip_exits) if has_shfl(*lp)]
     inner = [(lo, hi) for lo, hi in loops
              if not any((a, b) != (lo, hi) and lo <= a and b <= hi
                         for a, b in loops)]
@@ -192,21 +198,30 @@ def loop_paths(body, lo: int, hi: int):
     raise RuntimeError("the loop's backward branch is not reachable")
 
 
-def forward_row_pipes(funcs: dict, band: int = 128) -> dict:
+def row_pipes(funcs: dict, key: str, skip_exits: int = 0) -> dict:
     """{"min": {...}, "max": {...}, "loop": {...}} SASS instructions by
-    pipe of one row of the forward kernel's instance for ``band``."""
-    key = f"banded_fwd_kernelILi{band // 32}E"
+    pipe of one iteration of the row loop of the first kernel whose name
+    holds ``key`` (past ``skip_exits`` early returns), and "opcodes":
+    {opcode: count} of every instruction in the loop."""
     body = next((v for k, v in funcs.items() if key in k), None)
     if body is None:
         raise RuntimeError(f"no kernel {key} in the library")
-    lo, hi = row_loop(body)
+    lo, hi = row_loop(body, skip_exits)
     mn, mx, total = loop_paths(body, lo, hi)
 
     def table(c):
         d = {p: c.get(p, 0) for p in PIPES}
         d["all"] = sum(c.values())
         return d
-    return {"min": table(mn), "max": table(mx), "loop": table(total)}
+    ops = Counter(_build.sass_mnemonic(i).split(".")[0] for a, i in body
+                  if lo <= a <= hi)
+    return {"min": table(mn), "max": table(mx), "loop": table(total),
+            "opcodes": dict(ops.most_common())}
+
+
+def forward_row_pipes(funcs: dict, band: int = 128) -> dict:
+    """``row_pipes`` of the forward kernel's instance for ``band``."""
+    return row_pipes(funcs, f"banded_fwd_kernelILi{band // 32}E")
 
 
 def format_row_pipes(res: dict) -> list:

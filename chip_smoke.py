@@ -35,11 +35,23 @@ repo's Python dependencies (no JAX needed or imported):
    reads with adapters and oligo-dT indexes, requires the adapter kernel
    to have launched during that run, and requires its output tree to
    equal the numpy backend's byte for byte;
-9. prints one JSON line with the kernels (times, launches, and the
+9. runs the consensus CLI on the same 1000 reads in 8 groups (``-g
+   125``) as 1, 2, 4 and 8 processes that share the one card
+   (``--coordinator localhost:<port> --num_processes N``): every merged
+   tree must equal the numpy backend's byte for byte, and every process
+   must have launched the consensus kernels;
+10. runs the consensus and postprocess runs through
+   ``TorchBackend("cuda", devices=["cuda:0"] * n)`` for n = 2 and 3 (n
+   streams of the one card; no second card is used): byte-identical to
+   numpy, each kernel launched at least n times as often as on one
+   device;
+11. prints one JSON line with the kernels (times, launches, and the
    least time the card could take for the same work), the
    ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}`` line.
 
-Besides, step 4 times the locate step's smoothing and peak candidates
+Besides, step 4 reads the profile kernel's row loop from its SASS (its
+instructions a cell, beside the fewest its bound counts), times the
+locate step's smoothing and peak candidates
 (torch ops) alone with their bound and a conv1d yardstick, measures the
 float32 smoothing's error at 200 and 450 bp splints and the peak guard's
 extra flags (``tools/smooth_error``), reads the int16 probe's device
@@ -59,6 +71,11 @@ order earlier, current, current, earlier.
 Exits non-zero, printing no result line, when there is no CUDA device,
 when the repo's packages are missing, or when any phase fails.  Work
 files go to ``build/chip_smoke/`` in the checkout.
+
+    python3 chip_smoke.py --cli-process OUT.json CLI_ARGS...
+
+is one process of step 9: ``python -m c3poa_tpu_torch.cli CLI_ARGS``,
+then its kernel launches, peak device memory and seconds into OUT.json.
 """
 
 from __future__ import annotations
@@ -78,6 +95,14 @@ SEED = 0
 N_READS = 1000
 # consensus-like reads of the postprocess phases
 N_POST_READS = 1000
+# the process sweep: process counts sharing the card, and the group size
+# that gives the 1000 reads 8 groups (one a process at 8)
+SWEEP = (1, 2, 4, 8)
+SWEEP_GROUP = 125
+# seconds one process of the sweep may take
+PROCESS_TIMEOUT = 300
+# the mesh phase: streams of the one card, in turns with one device
+MESH_SHARES = (1, 2, 3, 1)
 
 # Peaks of one H100 SXM for the bound (the least time for the same
 # work): HBM at 3.35 TB/s (NVIDIA's data sheet); int32 issue at 64 INT32
@@ -94,8 +119,7 @@ SM_LANE_OPS_PER_S = 4 * 32 * 1.98e9
 # the same on all 132 SMs
 LANE_OPS_PER_S = 132 * SM_LANE_OPS_PER_S
 # integer operations a DP cell (or walk step) needs, counted from the
-# recurrences: profile — substitution 2, diagonal and up 2, 3-way max 2,
-# run shift, max and unshift 3, column max 1; banded forward —
+# recurrences: banded forward —
 # substitution 2, E 3 and its flag 1, D 1, Ht 1, F prefix 3 and its flag
 # 3, H 1, move source 3, nibble 2; walk — nibble decode 2, state and
 # source 4, i/j 2; int16 probe — max, roll, select and add per column;
@@ -108,14 +132,26 @@ LANE_OPS_PER_S = 132 * SM_LANE_OPS_PER_S
 # diagonal (IADD3), the three-way max of diagonal, up and left (VIMNMX3),
 # the floor (VIADDMNMX), the tie rank cleared (LOP3), the cell as the
 # next column's left and the next row's up (2 IADD), the column's key
-# (VIADDMNMX); the lane's step around the cells is not counted
-OPS_PER_CELL = {"start_profile_cuda": 10, "banded_fwd_cuda": 20,
+# (VIADDMNMX); the lane's step around the cells is not counted.  Profile,
+# the fewest Hopper instructions a cell of the recurrence in the form
+# csrc/profile.cu keeps, a = G - gap * j, over 128 lanes an SM: the
+# substitution plus gap from a per-row table by the read's code (PRMT),
+# the diagonal and the up term each folded into a max with the column's
+# floor -gap * j by one DPX VIADDMNMX (2), the in-row running max (IMNMX),
+# the thread's share of its 16 columns' total for the scan across the
+# warp (a VIMNMX3 tree, 8 for 16 columns: 0.5), the column max (IMNMX);
+# the row's shuffles and barrier are not counted
+OPS_PER_CELL = {"start_profile_cuda": 5.5, "banded_fwd_cuda": 20,
                 "banded_walk_cuda": 8, "adapter_hits_cuda": 8,
                 "int16_probe_cuda": 4, "floor_probe_cuda": 2}
 # the adapter kernel's first count, printed beside the bound: a prefix
 # scan of the in-row run (run shift, join and unshift 5 and 16 more a
 # cell) on the 64-lane ALU
 ADAPTER_SCAN_OPS_PER_CELL = 21
+# the profile's first count, printed beside the bound: substitution 2,
+# diagonal and up 2, 3-way max 2, run shift, max and unshift 3, column
+# max 1, on the 64-lane ALU
+PROFILE_RECURRENCE_OPS_PER_CELL = 10
 
 # the TPU kernel each CUDA kernel replaces
 KERNELS = {
@@ -273,11 +309,18 @@ def phase_profile(dev, reads, splints, results):
     # own columns
     need = int(lens.astype(np.int64).sum()) * S_np.shape[0] * len(codes)
     bd = bound(nbytes(Rd, Sd, ld, got),
-               OPS_PER_CELL["start_profile_cuda"] * need)
+               OPS_PER_CELL["start_profile_cuda"] * need, LANE_OPS_PER_S)
+    first = bound(nbytes(Rd, Sd, ld, got),
+                  PROFILE_RECURRENCE_OPS_PER_CELL * need)
     log(f"profile: B={B} C={S_np.shape[0]} L={L} m={S_np.shape[1]} exact; "
         f"kernel {ms:.3f} ms ({cells / ms / 1e6:.1f} G cells/s), "
-        f"plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
-        f"({bd['bound_by']}, {need} cells)")
+        f"plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']}, {need} cells, "
+        f"{OPS_PER_CELL['start_profile_cuda']} instructions a cell on 128 "
+        f"lanes an SM: the kernel at {bd['bound_ms'] / ms:.1%} of it); "
+        f"{first['bound_ms']:.4f} ms with the recurrence's count "
+        f"({PROFILE_RECURRENCE_OPS_PER_CELL} on 64 lanes)")
+    profile_sass(need / ms * 1e3)
     results["start_profile_cuda"] = dict(max_abs_err=err, ms=ms,
                                          plain_ms=plain_ms, **bd)
 
@@ -315,6 +358,26 @@ def phase_profile(dev, reads, splints, results):
         if res["flagged"] < res["flagged_floor_only"]:
             raise SmokeFailure("the relative structure margin flags fewer "
                                "reads than its floor alone")
+
+
+def profile_sass(cells_per_s: float) -> None:
+    """The profile kernel's row loop from its SASS: instructions a row
+    and thread by pipe and by opcode, and a cell's share (a thread holds
+    16 columns of a row); beside it what the timed rate of this run's
+    cells leaves a cell at four warp instructions a clock an SM (ALU and
+    FMA pipes) and at two (the ALU pipe alone)."""
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.tools import banded_sass
+    # past the kernel's first EXIT: the early return of tiles past a
+    # read's end
+    res = banded_sass.row_pipes(_build.sass("profile"), "profile_kernel", 1)
+    per_cell = {k: res[k]["all"] / 16 for k in ("min", "max", "loop")}
+    at_four = LANE_OPS_PER_S / cells_per_s
+    log(f"profile row loop SASS (a row and thread, 16 cells): "
+        f"{json.dumps({k: res[k] for k in ('min', 'max', 'loop')})}; "
+        f"opcodes {json.dumps(res['opcodes'])}; a cell "
+        f"{json.dumps(per_cell)}; the timed rate leaves {at_four:.2f} "
+        f"instructions a cell at 4 a clock an SM, {at_four / 2:.2f} at 2")
 
 
 def smooth_peaks_row(dev, Rd, Sd, ld, prof):
@@ -963,7 +1026,215 @@ def phase_postprocess_end_to_end(results):
         raise SmokeFailure("postprocess wrote no read")
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(cmds, logs, env) -> tuple[float, float]:
+    """Start every command (output to its log file), wait for all, each
+    within PROCESS_TIMEOUT, and kill whatever is left if one fails or
+    hangs.  Returns (the time of the first start, the seconds from it to
+    the last exit)."""
+    procs = []
+    t0 = time.time()
+    try:
+        for cmd, path in zip(cmds, logs):
+            with open(path, "w") as fh:
+                procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                              stdout=fh,
+                                              stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=PROCESS_TIMEOUT)
+        wall = time.time() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, path in zip(procs, logs):
+        if p.returncode != 0:
+            tail = open(path).read()[-3000:]
+            raise SmokeFailure(f"{' '.join(p.args[:4])}... exited "
+                               f"{p.returncode}:\n{tail}")
+    return t0, wall
+
+
+def require_same_outputs(what: str, out: str, ref: str) -> None:
+    for rel in OUTPUT_FILES:
+        a = open(os.path.join(out, rel), "rb").read()
+        b = open(os.path.join(ref, rel), "rb").read()
+        if a != b:
+            raise SmokeFailure(f"{what}: {rel} differs from the numpy "
+                               f"backend's")
+
+
+def phase_processes():
+    """The consensus CLI on the 1000 reads in 8 groups as 1, 2, 4 and 8
+    processes sharing the card (gloo over localhost; each process its
+    round-robin share of the groups, host 0 merging): wall from the
+    first start to the last exit; for each process its set-up (start to
+    its first line, imports, CUDA context), the CLI's seconds and CPU
+    seconds, its run's reads_per_sec and stage seconds, kernel launches
+    and peak device memory; the share of the machine's cores the
+    processes kept busy.  Each merged tree must equal the numpy arm of
+    ``phase_end_to_end``."""
+    reads_fq = os.path.join(WORK, "reads.fastq")
+    splint_fa = os.path.join(WORK, "splint.fasta")
+    out_np = os.path.join(WORK, "out_numpy")
+    # every process is on this machine: gloo talks over the loopback
+    env = dict(os.environ, C3POA_PROGRESS="0", GLOO_SOCKET_IFNAME="lo",
+               PYTHONPATH=ROOT)
+    log(f"process sweep: {N_READS} reads, -g {SWEEP_GROUP} "
+        f"({-(-N_READS // SWEEP_GROUP)} groups), every process on cuda:0 "
+        f"(no MPS); os.cpu_count() = {os.cpu_count()}")
+    for n in SWEEP:
+        out = os.path.join(WORK, f"out_procs{n}")
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+        multi = ["--coordinator", f"localhost:{free_port()}",
+                 "--num_processes", str(n)] if n > 1 else []
+        cmds, logs, reports = [], [], []
+        for h in range(n):
+            reports.append(os.path.join(out, f".process_{h}.json"))
+            logs.append(os.path.join(out, f".process_{h}.log"))
+            cmds.append([sys.executable, os.path.abspath(__file__),
+                         "--cli-process", reports[-1], "-r", reads_fq,
+                         "-s", splint_fa, "-o", out, "--backend", "cuda",
+                         "-g", str(SWEEP_GROUP), *multi,
+                         *(["--process_id", str(h)] if n > 1 else [])])
+        t0, wall = run_processes(cmds, logs, env)
+        require_same_outputs(f"{n} processes", out, out_np)
+        rows = []
+        for h in range(n):
+            rep = json.load(open(reports[h]))
+            host = os.path.join(out, f"host_{h}") if n > 1 else out
+            stats = json.load(open(os.path.join(host, "c3poa_stats.json")))
+            c = stats["counters"]
+            if c.get("locate_launches", 0) <= 0 or \
+                    c.get("align_launches", 0) <= 0:
+                raise SmokeFailure(f"{n} processes: process {h} made no "
+                                   f"locate or align launch ({c})")
+            for name in CONSENSUS_KERNELS:
+                if rep["launches"].get(name, 0) <= 0:
+                    raise SmokeFailure(f"{n} processes: process {h} did "
+                                       f"not launch {name}")
+            rows.append(dict(process=h, reads=c["reads"],
+                             reads_per_sec=stats.get("reads_per_sec"),
+                             start_s=round(rep["entered"] - t0, 3),
+                             import_s=round(rep["import_s"], 3),
+                             context_s=round(rep["context_s"], 3),
+                             cli_s=round(rep["cli_s"], 3),
+                             run_wall_s=stats["wall_s"],
+                             cpu_s=round(rep["cpu_s"], 3),
+                             peak_device_mb=round(
+                                 rep["max_memory_allocated"] / 2 ** 20, 1),
+                             stages_s=stats["stages_s"],
+                             launches=rep["launches"]))
+        runs = max(r["run_wall_s"] for r in rows)
+        busy = sum(r["cpu_s"] for r in rows) / ((os.cpu_count() or 1) * wall)
+        log(f"processes {n}: {N_READS} reads in {wall:.3f} s = "
+            f"{N_READS / wall:.3f} reads/s (wall from the first start to "
+            f"the last exit, set-up included); {N_READS / runs:.3f} reads/s "
+            f"over the slowest run ({runs:.3f} s); the processes' CPU time "
+            f"in their CLI calls {busy:.1%} of the machine's cores over the "
+            f"wall; merged tree identical to numpy; {json.dumps(rows)}")
+
+
+def cli_process(report: str, argv) -> int:
+    """One process of ``phase_processes``: the consensus CLI on ``argv``
+    after the card's context is made, then into ``report`` the time this
+    function was entered, the seconds of the imports, of the context and
+    of the CLI call, the CLI's CPU seconds (all threads), its kernel
+    launches (counted from 0 here) and peak device memory."""
+    import resource
+    entered = time.time()
+    import torch
+    sys.path.insert(0, ROOT)
+    from c3poa_tpu_torch import cli
+    from c3poa_tpu_torch.kernels import _build
+    imported = time.time()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.time()
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    rc = cli.main(argv)
+    ru2 = resource.getrusage(resource.RUSAGE_SELF)
+    with open(report, "w") as fh:
+        json.dump(dict(rc=rc, entered=entered, import_s=imported - entered,
+                       context_s=t0 - imported, cli_s=time.time() - t0,
+                       cpu_s=(ru2.ru_utime + ru2.ru_stime) -
+                       (ru.ru_utime + ru.ru_stime),
+                       launches=_build.launch_counts(),
+                       max_memory_allocated=torch.cuda.max_memory_allocated()),
+                  fh)
+    return rc
+
+
+def phase_mesh(dev, results):
+    """The consensus and postprocess runs through ``TorchBackend`` with
+    ``devices=[cuda:0] * n``: every launch cut into n shares, each on a
+    stream of its own, on the one card, in turns with one device (n = 1,
+    2, 3, 1).  Byte-identical to the numpy arms; each kernel launched at
+    least n times as often as in the one-device runs of the CLI."""
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.pipeline.postprocess import (PostprocessConfig,
+                                                      run_postprocess)
+    from c3poa_tpu_torch.pipeline.run import PipelineConfig, run_pipeline
+    from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
+
+    import torch
+    first = torch.device(dev.type, 0)
+    log(f"mesh: devices = ['{first}'] * n, n streams of the one card; no "
+        f"second card was used")
+    for n in MESH_SHARES:
+        backend = TorchBackend(str(first), devices=[first] * n)
+        out = os.path.join(WORK, f"out_mesh{n}")
+        shutil.rmtree(out, ignore_errors=True)
+        _build.reset_counts()
+        t0 = time.time()
+        run_pipeline(os.path.join(WORK, "reads.fastq"),
+                     os.path.join(WORK, "splint.fasta"), out,
+                     PipelineConfig(group_size=N_READS), backend)
+        wall = time.time() - t0
+        counts = _build.launch_counts()
+        require_same_outputs(f"mesh {n}", out, os.path.join(WORK,
+                                                            "out_numpy"))
+        post = os.path.join(WORK, f"post_mesh{n}")
+        shutil.rmtree(post, ignore_errors=True)
+        _build.reset_counts()
+        t0 = time.time()
+        run_postprocess(os.path.join(WORK, "post_in.fasta"), post,
+                        os.path.join(WORK, "adapters.fasta"),
+                        os.path.join(WORK, "indexes.fasta"),
+                        PostprocessConfig(trim=True), backend)
+        post_wall = time.time() - t0
+        counts.update(_build.launch_counts())
+        if tree_bytes(post) != tree_bytes(os.path.join(WORK, "post_numpy")):
+            raise SmokeFailure(f"mesh {n}: the postprocess tree differs "
+                               f"from the numpy backend's")
+        for name in CONSENSUS_KERNELS + POST_KERNELS:
+            if counts.get(name, 0) < n * results[name]["launches"]:
+                raise SmokeFailure(
+                    f"mesh {n}: {name} launched {counts.get(name, 0)} "
+                    f"times, one device {results[name]['launches']}")
+        n_post = sum(1 for line in open(os.path.join(WORK, "post_in.fasta"))
+                     if line.startswith(">"))
+        log(f"mesh {n}: consensus {N_READS} reads in {wall:.3f} s = "
+            f"{N_READS / wall:.3f} reads/s, postprocess {n_post} reads in "
+            f"{post_wall:.3f} s = {n_post / post_wall:.3f} reads/s, both "
+            f"identical to numpy; launches {json.dumps(counts)} (one "
+            f"device: "
+            f"{json.dumps({k: results[k]['launches'] for k in CONSENSUS_KERNELS + POST_KERNELS})})")
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--cli-process"]:
+        return cli_process(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-adapters", metavar="DIR",
                     help="an earlier adapters.cu (with its adapters.cuh) "
@@ -1023,8 +1294,10 @@ def main(argv=None) -> int:
                 (phase_adapters, (dev, results, opts.parent_adapters)),
                 (phase_probes, (dev, results)),
                 (phase_end_to_end, (results,)),
+                (phase_processes, ()),
                 (phase_host_routes, (dev,)),
-                (phase_postprocess_end_to_end, (results,))):
+                (phase_postprocess_end_to_end, (results,)),
+                (phase_mesh, (dev, results))):
             t0 = time.time()
             phase(*args)
             log(f"{phase.__name__}: {time.time() - t0:.3f} s")

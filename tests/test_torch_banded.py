@@ -328,6 +328,18 @@ def test_sass_row_loop_paths():
         banded_sass.forward_row_pipes(funcs, 64)
 
 
+def test_sass_row_pipes_of_a_kernel_by_name():
+    """Any kernel's row loop by a part of its name, with the loop's
+    opcodes (the profile kernel's is read so on the card)."""
+    funcs = _build.parse_sass(SASS_SAMPLE)
+    res = banded_sass.row_pipes(funcs, "banded_fwd")
+    assert res["min"] == banded_sass.forward_row_pipes(funcs, 128)["min"]
+    assert sum(res["opcodes"].values()) == res["loop"]["all"] == 16
+    assert res["opcodes"]["BRA"] == 4 and res["opcodes"]["IDP"] == 1
+    with pytest.raises(RuntimeError, match="no kernel profile_kernel"):
+        banded_sass.row_pipes(funcs, "profile_kernel")
+
+
 def test_sass_row_pipes_of_the_built_kernel():
     """The reader on the forward kernel as nvcc 12.8 built it for sm_90a
     (``tests/banded_fwd_w128.sass.gz``: ``cuobjdump -sass`` of the built
@@ -351,6 +363,29 @@ def test_sass_row_pipes_of_the_built_kernel():
                               mem=1, ctrl=12, uni=6, other=0)
     assert res["max"]["all"] == 349 and res["max"]["shfl"] == 59
     assert res["loop"]["all"] == 788
+
+
+def test_sass_row_pipes_of_the_built_profile_kernel():
+    """The reader on the profile kernel as nvcc 12.9 built it for sm_90a
+    (``tests/profile_kernel.sass.gz``: ``cuobjdump -sass`` of the built
+    library).  Its first EXIT (0x330) is the early return of tiles past a
+    read's end, so the row loop (0x12b0-0x29c0, one splint row of 16
+    columns a thread) lies past it.  A real row's path issues 322
+    instructions (20.1 a cell, 13.75 on the ALU pipe); a pad row's, which
+    scores 0 without the substitution, 230."""
+    import gzip
+    with gzip.open(os.path.join(ROOT, "tests", "profile_kernel.sass.gz"),
+                   "rt") as f:
+        funcs = _build.parse_sass(f.read())
+    body = next(iter(funcs.values()))
+    with pytest.raises(RuntimeError, match="no loop with a warp shuffle"):
+        banded_sass.row_loop(body)
+    assert banded_sass.row_loop(body, 1) == (0x12b0, 0x29c0)
+    res = banded_sass.row_pipes(funcs, "profile_kernel", 1)
+    assert res["max"] == dict(all=322, alu=220, fma=34, xu=0, shfl=7,
+                              lds=10, mem=1, ctrl=7, uni=26, other=17)
+    assert res["min"]["all"] == 230 and res["loop"]["all"] == 370
+    assert res["opcodes"]["SHFL"] == 7 and res["opcodes"]["BAR"] == 1
 
 
 @pytest.mark.parametrize("op,pipe", [

@@ -20,7 +20,6 @@ from c3poa_tpu_torch import cli, cli_postprocess
 from c3poa_tpu_torch.io.fastx import read_fastx
 from c3poa_tpu_torch.pipeline.postprocess import (PostprocessConfig,
                                                   run_postprocess)
-from c3poa_tpu_torch.pipeline.run import PipelineConfig, run_pipeline
 from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
 from c3poa_tpu_torch.ref import banded
 from c3poa_tpu_torch.utils import encode, revcomp
@@ -116,26 +115,18 @@ def test_cli_postprocess_cpu_matches_jax_cli_numpy(tmp_path, flags):
 def test_cli_postprocess_flags():
     args = cli_postprocess.parse_args(["-i", "x", "-a", "y"])
     assert args.backend == "cuda"
-    for gone in ("--mesh_devices", "--num_processes", "--coordinator",
-                 "--process_id"):
-        with pytest.raises(SystemExit):
-            cli_postprocess.parse_args(["-i", "x", "-a", "y", gone, "1"])
+    # the multi-host and mesh flags parse, with the original's defaults
+    assert (args.mesh_devices, args.coordinator, args.num_processes,
+            args.process_id) == ("auto", None, 1, None)
+    args = cli_postprocess.parse_args(
+        ["-i", "x", "-a", "y", "--mesh_devices", "1", "--num_processes", "1",
+         "--coordinator", "h:1", "--process_id", "1"])
+    assert (args.mesh_devices, args.coordinator, args.num_processes,
+            args.process_id) == ("1", "h:1", 1, 1)
     if not torch.cuda.is_available():
         # no silent CPU run when the card was asked for
         with pytest.raises(RuntimeError, match="is_available"):
             cli_postprocess.main(["-i", "x", "-a", "y"])
-
-
-def test_multi_host_runs_are_not_ported(tmp_path):
-    _make_post_inputs(tmp_path, n_reads=2)
-    with pytest.raises(NotImplementedError, match="1.8"):
-        run_postprocess(str(tmp_path / "cons.fasta"), str(tmp_path / "o"),
-                        str(tmp_path / "adapters.fasta"),
-                        cfg=PostprocessConfig(process_count=2))
-    with pytest.raises(NotImplementedError, match="1.8"):
-        run_pipeline(str(tmp_path / "cons.fasta"),
-                     str(tmp_path / "adapters.fasta"), str(tmp_path / "p"),
-                     PipelineConfig(process_count=2))
 
 
 def test_consensus_then_postprocess_chain_through_port_clis(tmp_path):

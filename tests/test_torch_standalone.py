@@ -77,6 +77,8 @@ import c3poa_tpu_torch.cli
 import c3poa_tpu_torch.cli_postprocess
 import c3poa_tpu_torch.pipeline.torch_backend
 import c3poa_tpu_torch.pipeline.postprocess
+import c3poa_tpu_torch.parallel.dist
+import c3poa_tpu_torch.parallel.mesh
 import c3poa_tpu_torch.tools.adapters_time
 import c3poa_tpu_torch.tools.banded_sass
 import c3poa_tpu_torch.tools.banded_chain
