@@ -36,7 +36,8 @@ BUILD_DIR = os.path.join(
         __file__)))), "build", "c3poa_tpu_torch")
 # one library per source; never --use_fast_math (band_lo needs IEEE
 # f32 division and round-half-even, see csrc/band_lo.cuh)
-SOURCES = ("profile", "banded", "adapters", "int16_probe", "floor_probe")
+SOURCES = ("profile", "banded", "adapters", "int16_probe", "floor_probe",
+           "smooth")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -50,6 +51,7 @@ SIGNATURES = {
     "adapters": {"c3t_adapter_hits": [_P] * 7 + [_I] * 8 + [_P]},
     "int16_probe": {"c3t_int16_probe": [_P] * 3 + [_I] + [_P]},
     "floor_probe": {"c3t_floor_probe": [_P] * 2 + [_I] * 5 + [_P]},
+    "smooth": {"c3t_smooth3": [_P] * 5 + [_I] * 3 + [_P]},
 }
 
 _LOCK = threading.Lock()

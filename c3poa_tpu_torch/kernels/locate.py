@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from .peaks import peak_candidates_batch
-from .smooth import smooth3_batch
+from .smooth import combo_rows, smooth3
 from .sw_profile import start_profile
 
 
@@ -26,10 +26,7 @@ def profile_rows_combo(reads: torch.Tensor, lens: torch.Tensor,
                        combo: torch.Tensor) -> torch.Tensor:
     """(B, L) int32: the chosen combo's exact profile row per read —
     ``profile_rows(...)[arange(B), combo]``.  combo (B,) int."""
-    prof = start_profile(reads, splints, lens)
-    B, _C, L = prof.shape
-    idx = combo.to(torch.int64).view(B, 1, 1).expand(B, 1, L)
-    return torch.gather(prof, 1, idx)[:, 0, :]
+    return combo_rows(start_profile(reads, splints, lens), combo)
 
 
 def locate_device(reads: torch.Tensor, lens: torch.Tensor,
@@ -42,15 +39,13 @@ def locate_device(reads: torch.Tensor, lens: torch.Tensor,
     ``combo`` is the argmax of the per-combo profile max, lowest index
     on ties."""
     prof = start_profile(reads, splints, lens)               # (B, C, L)
-    B, C, L = prof.shape
+    C = prof.shape[1]
     per_combo = torch.max(prof, dim=2).values                # (B, C)
     best_score = torch.max(per_combo, dim=1).values
     carr = torch.arange(C, dtype=torch.int32, device=prof.device)[None, :]
     combo = torch.min(torch.where(per_combo == best_score[:, None], carr, C),
                       dim=1).values
-    idx = combo.to(torch.int64).view(B, 1, 1).expand(B, 1, L)
-    chosen = torch.gather(prof, 1, idx)[:, 0, :]             # (B, L)
-    sm = smooth3_batch(chosen.to(torch.float32), lens)
+    sm = smooth3(prof, combo, lens)                           # (B, L)
     cand_pos, cand_h, med, _height, _gated, deep, margin = \
         peak_candidates_batch(sm, lens, tile=tile)
     return combo, best_score, cand_pos, cand_h, med, deep, margin

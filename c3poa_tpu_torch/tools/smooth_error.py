@@ -8,7 +8,8 @@ Reads as ``bench.py`` makes them (inserts of 500-2000 bases, 5-15
 copies, 5% errors) around one random splint of ``--splint-len`` bases.
 For each read, the chosen combo's exact profile row (the profile kernel
 on the card, its plain version on the CPU) is smoothed by
-``kernels.smooth.smooth3_batch`` and by ``ref.sg.smooth3`` in float64.
+``kernels.smooth.smooth3`` (the smoothing kernel on the card, the plain
+version on the CPU) and by ``ref.sg.smooth3`` in float64.
 Prints one JSON line: the largest absolute and adjacent-difference
 errors, the largest adjacent-difference error over the read's smoothed
 maximum (what ``kernels.peaks.STRUCT_REL`` must cover), and the reads
@@ -28,7 +29,7 @@ import torch
 from .. import sim
 from ..device import resolve_device
 from ..kernels import peaks
-from ..kernels.smooth import smooth3_batch
+from ..kernels.smooth import combo_rows, smooth3
 from ..kernels.sw_profile import start_profile
 from ..pipeline.backend import Combo
 from ..ref import sg
@@ -51,15 +52,15 @@ def bench_reads(n_reads: int, splint_len: int, seed: int):
     return [encode(r.seq) for r in reads], combos
 
 
-def chosen_rows(R, lens, S):
-    """(B, L) int32: the profile row of each read's best combo (the
-    lowest index on ties), as ``kernels.locate.locate_device`` picks it."""
+def chosen_combos(R, lens, S):
+    """The (B, C, L) int32 profiles and (B,) int32 index of each read's
+    best combo (the lowest index on ties), as
+    ``kernels.locate.locate_device`` picks it."""
     prof = start_profile(R, S, lens)
     best = prof.max(dim=2).values
     combo = (best == best.max(dim=1, keepdim=True).values).to(
-        torch.int32).argmax(dim=1)
-    B, _, L = prof.shape
-    return torch.gather(prof, 1, combo.view(B, 1, 1).expand(B, 1, L))[:, 0]
+        torch.int32).argmax(dim=1).to(torch.int32)
+    return prof, combo
 
 
 def margin_flags(sm, lens, struct_rel: float) -> torch.Tensor:
@@ -96,8 +97,9 @@ def measure_reads(enc, combos, dev) -> dict:
         for b, c in enumerate(chunk):
             R[b, :len(c)] = c
         Rd, ld = to_device(R, dev), to_device(lens, dev)
-        rows = chosen_rows(Rd, ld, S)
-        sm = smooth3_batch(rows.to(torch.float32), ld)
+        prof, combo = chosen_combos(Rd, ld, S)
+        rows = combo_rows(prof, combo)
+        sm = smooth3(prof, combo, ld)
         res["flagged"] += int(margin_flags(sm, ld, peaks.STRUCT_REL).sum())
         res["flagged_floor_only"] += int(margin_flags(sm, ld, 0.0).sum())
         rows_np, sm_np = rows.cpu().numpy(), sm.cpu().numpy()

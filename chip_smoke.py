@@ -50,11 +50,14 @@ repo's Python dependencies (no JAX needed or imported):
    ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}`` line.
 
 Besides, step 4 reads the profile kernel's row loop from its SASS (its
-instructions a cell, beside the fewest its bound counts), times the
-locate step's smoothing and peak candidates
-(torch ops) alone with their bound and a conv1d yardstick, measures the
-float32 smoothing's error at 200 and 450 bp splints and the peak guard's
-extra flags (``tools/smooth_error``), reads the int16 probe's device
+instructions a cell, beside the fewest its bound counts), requires the
+smoothing kernel to equal the CPU plain version bit for bit at the locate
+shape, times it beside its plain version, its bound and three conv1d
+passes as a yardstick, times the peak candidates (torch ops) alone and
+counts one locate batch's device activities (``torch.profiler``),
+measures the float32 smoothing's error against float64 at 200 and 450 bp
+splints and the peak guard's extra flags (``tools/smooth_error``, through
+the kernel), reads the int16 probe's device
 time from ``torch.profiler`` at two shapes, and times the adapter kernel
 on the inputs of ``c3poa_tpu_torch.tools.adapters_time`` (its general
 path, a long read, small batches), each held to its plain version.
@@ -83,6 +86,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -140,10 +144,16 @@ LANE_OPS_PER_S = 132 * SM_LANE_OPS_PER_S
 # floor -gap * j by one DPX VIADDMNMX (2), the in-row running max (IMNMX),
 # the thread's share of its 16 columns' total for the scan across the
 # warp (a VIMNMX3 tree, 8 for 16 columns: 0.5), the column max (IMNMX);
-# the row's shuffles and barrier are not counted
+# the row's shuffles and barrier are not counted.  Smoothing, per column
+# of a read (j < n): 3 passes x 41 taps, each one FMUL and one FADD;
+# bit-identity with the plain version forbids the FMA (and the
+# symmetric-tap shortcut), so these are 246 FP32 instructions on 128
+# lanes an SM, not 123 FMAs at the data sheet's 67 TFLOP/s; the edge pads
+# (40 a pass a read) are not counted
 OPS_PER_CELL = {"start_profile_cuda": 5.5, "banded_fwd_cuda": 20,
                 "banded_walk_cuda": 8, "adapter_hits_cuda": 8,
-                "int16_probe_cuda": 4, "floor_probe_cuda": 2}
+                "int16_probe_cuda": 4, "floor_probe_cuda": 2,
+                "smooth3_cuda": 246}
 # the adapter kernel's first count, printed beside the bound: a prefix
 # scan of the in-row run (run shift, join and unshift 5 and 16 more a
 # cell) on the 64-lane ALU
@@ -152,6 +162,10 @@ ADAPTER_SCAN_OPS_PER_CELL = 21
 # diagonal and up 2, 3-way max 2, run shift, max and unshift 3, column
 # max 1, on the 64-lane ALU
 PROFILE_RECURRENCE_OPS_PER_CELL = 10
+# the smoothing's first count, printed beside the bound: the same 246
+# float operations an element over all B x L elements at 67 TFLOP/s, as
+# if they were FMAs
+SMOOTH_FIRST_OPS_PER_ELEMENT = 3 * 41 * 2
 
 # the TPU kernel each CUDA kernel replaces
 KERNELS = {
@@ -167,9 +181,11 @@ KERNELS = {
                          "tools/int16_probe.py:34"),
     "floor_probe_cuda": ("c3poa_tpu_torch/kernels/csrc/floor_probe.cu",
                          "tools/mosaic_floor_probe.py:29"),
+    "smooth3_cuda": ("c3poa_tpu_torch/kernels/csrc/smooth.cu",
+                     "c3poa_tpu/kernels/smooth.py:28"),
 }
 # which run launches which kernel
-CONSENSUS_KERNELS = ("start_profile_cuda", "banded_fwd_cuda",
+CONSENSUS_KERNELS = ("start_profile_cuda", "smooth3_cuda", "banded_fwd_cuda",
                      "banded_walk_cuda")
 POST_KERNELS = ("adapter_hits_cuda",)
 # the floor probe's check: every mode at these S, M = 64 and a short loop
@@ -277,7 +293,8 @@ def phase_profile(dev, reads, splints, results):
     import numpy as np
     import torch
 
-    from c3poa_tpu_torch.kernels.smooth import smooth3_batch
+    from c3poa_tpu_torch.kernels.smooth import (combo_rows, smooth3_batch,
+                                                smooth3_cuda)
     from c3poa_tpu_torch.kernels.sw_profile import (start_profile_batch,
                                                     start_profile_cuda)
     from c3poa_tpu_torch.pipeline.backend import Combo
@@ -324,12 +341,15 @@ def phase_profile(dev, reads, splints, results):
     results["start_profile_cuda"] = dict(max_abs_err=err, ms=ms,
                                          plain_ms=plain_ms, **bd)
 
-    # float32 smoothing on the card: against the CPU torch version, and
-    # the f32-vs-f64 error the peak guards are calibrated against
-    prof = want.max(dim=2).values.argmax(dim=1)
-    rows = torch.gather(want, 1, prof.view(B, 1, 1).expand(B, 1, L))[:, 0]
-    sm_gpu = smooth3_batch(rows.float(), ld).cpu()
-    sm_cpu = smooth3_batch(rows.float().cpu(), ld.cpu())
+    # the smoothing kernel on the card against the CPU plain version, bit
+    # for bit (-0 against +0 counts), and the f32-vs-f64 error the peak
+    # guards are calibrated against, which the kernel must reproduce
+    combo = want.max(dim=2).values.argmax(dim=1).to(torch.int32)
+    rows = combo_rows(want, combo)
+    sm_gpu = smooth3_cuda(want, combo, ld).cpu()
+    torch.cuda.synchronize()
+    sm_cpu = smooth3_batch(rows.cpu().float(), ld.cpu())
+    bad = int((sm_gpu.view(torch.int32) != sm_cpu.view(torch.int32)).sum())
     d_cpu = float((sm_gpu - sm_cpu).abs().max())
     e_abs = e_adj = 0.0
     rows_np, sm_np = rows.cpu().numpy(), sm_gpu.numpy()
@@ -339,13 +359,16 @@ def phase_profile(dev, reads, splints, results):
             rows_np[b, :n].astype(np.float64))
         e_abs = max(e_abs, float(np.abs(d).max()))
         e_adj = max(e_adj, float(np.abs(np.diff(d)).max()))
-    log(f"smooth3 f32 on the card: max |gpu - cpu torch| = {d_cpu!r}; "
-        f"vs f64 max abs {e_abs!r}, max adjacent-difference {e_adj!r} "
-        f"(JAX calibration 7.8e-5 / 8.4e-5; STRUCT_ATOL 2e-4)")
-    if d_cpu > 2e-4:
-        raise SmokeFailure(f"smooth3 on the card differs from the CPU by "
-                           f"{d_cpu} > 2e-4")
-    smooth_peaks_row(dev, Rd, Sd, ld, want)
+    log(f"smooth3_cuda: B={B} L={L}: {bad} of {sm_gpu.numel()} elements "
+        f"differ in bits from the CPU plain version (max |diff| "
+        f"{d_cpu!r}); vs f64 max abs {e_abs!r}, max adjacent-difference "
+        f"{e_adj!r} (the plain version's on the card: 9.547e-05 / "
+        f"1.142e-04; STRUCT_ATOL 2e-4)")
+    if bad:
+        raise SmokeFailure(f"smooth3_cuda differs from the CPU plain "
+                           f"version in {bad} elements (max {d_cpu})")
+    results["smooth3_cuda"] = dict(
+        max_abs_err=d_cpu, **smooth_peaks_row(dev, Rd, Sd, ld, want, combo))
 
     # the f32 error and the margin guard's flags with and without its
     # relative term (STRUCT_REL): the consensus run's 1000 reads and 200 bp
@@ -380,42 +403,54 @@ def profile_sass(cells_per_s: float) -> None:
         f"instructions a cell at 4 a clock an SM, {at_four / 2:.2f} at 2")
 
 
-def smooth_peaks_row(dev, Rd, Sd, ld, prof):
-    """The locate step's torch ops alone (``kernels/locate.py:51-55``):
-    the chosen combo's row gathered and made float, ``smooth3_batch`` and
-    ``peak_candidates_batch``; with the device kernels one locate batch
-    launches (``torch.profiler``), a bound and three conv1d passes of the
-    same 41 taps as a yardstick (not bit-equal: no per-read edge
-    padding)."""
+def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo):
+    """The locate step after the combo choice (``kernels/locate.py``),
+    at the locate shape: the smoothing kernel through its wrapper,
+    through its C interface (a run of launches the host cannot hold
+    back) and by its device time (``torch.profiler``); its plain version
+    (the gather, the float copy and ``smooth3_batch``); three conv1d
+    passes of the same taps as a yardstick (not bit-equal: no per-read
+    edge padding); the peak candidates alone; the step with the kernel
+    and with the plain version; and one locate batch's device activities.
+    Returns the kernel's row of the kernels line (ms through the C
+    interface)."""
     import torch
 
+    from c3poa_tpu_torch.kernels import _build
     from c3poa_tpu_torch.kernels.locate import locate_device
-    from c3poa_tpu_torch.kernels.peaks import peak_candidates_batch
-    from c3poa_tpu_torch.kernels.smooth import smooth3_batch
-    from c3poa_tpu_torch.ref.sg import sg_coeffs
+    from c3poa_tpu_torch.kernels.peaks import (masked_median,
+                                               peak_candidates_batch)
+    from c3poa_tpu_torch.kernels.smooth import (combo_rows, smooth3_batch,
+                                                smooth3_cuda, taps)
 
-    B, _, L = prof.shape
-    combo = prof.max(dim=2).values.argmax(dim=1)
-    idx = combo.view(B, 1, 1).expand(B, 1, L)
+    B, C, L = prof.shape
 
-    def gathered():
-        return torch.gather(prof, 1, idx)[:, 0, :].to(torch.float32)
+    def plain():
+        return smooth3_batch(combo_rows(prof, combo).to(torch.float32), ld)
 
-    rows = gathered()
-    sm = smooth3_batch(rows, ld)
+    sm = smooth3_cuda(prof, combo, ld)
     cand = peak_candidates_batch(sm, ld, tile=64)
+    out = torch.empty_like(sm)
+    args = (prof.data_ptr(), combo.data_ptr(), ld.data_ptr(),
+            taps().ctypes.data, out.data_ptr(), B, C, L)
 
-    def both():
-        x = smooth3_batch(gathered(), ld)
-        return peak_candidates_batch(x, ld, tile=64)
+    def direct():
+        _build.launch("smooth", "c3t_smooth3", "smooth3_timing", prof, *args)
 
-    ms_gather = cuda_time_ms(gathered, 5)
-    ms_smooth = cuda_time_ms(lambda: smooth3_batch(rows, ld), 5)
+    ms_wrapper = cuda_time_ms(lambda: smooth3_cuda(prof, combo, ld), 20)
+    ms_direct = cuda_time_ms(direct, 50)
+    acts = device_activities(lambda: [direct() for _ in range(10)])
+    us = [t for name, t in acts if "smooth3_kernel" in name]
+    device_ms = sum(us) / len(us) / 1e3 if us else None
+    plain_ms = cuda_time_ms(plain, 3)
     ms_peaks = cuda_time_ms(lambda: peak_candidates_batch(sm, ld, tile=64),
                             5)
-    ms_all = cuda_time_ms(both, 5)
-    w = torch.tensor(sg_coeffs(41, 2), dtype=torch.float32,
-                     device=dev).view(1, 1, 41)
+    ms_step = cuda_time_ms(lambda: peak_candidates_batch(
+        smooth3_cuda(prof, combo, ld), ld, tile=64), 5)
+    ms_step_plain = cuda_time_ms(lambda: peak_candidates_batch(
+        plain(), ld, tile=64), 3)
+    w = torch.tensor(taps(), device=dev).view(1, 1, 41)
+    rows = combo_rows(prof, combo).to(torch.float32)
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -424,20 +459,73 @@ def smooth_peaks_row(dev, Rd, Sd, ld, prof):
             for _ in range(3):
                 x = torch.nn.functional.conv1d(x, w, padding=20)
             return x
-        ms_conv = cuda_time_ms(conv3, 5)
+        ms_conv = cuda_time_ms(conv3, 20)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    step = device_activities(both)
+    step = device_activities(lambda: peak_candidates_batch(
+        smooth3_cuda(prof, combo, ld), ld, tile=64))
+    peaks = device_activities(lambda: peak_candidates_batch(sm, ld, tile=64))
+    median = device_activities(lambda: masked_median(sm, ld))
     batch = device_activities(lambda: locate_device(Rd, ld, Sd, tile=64))
-    # the int32 row read once, the candidates and flags written once
-    bd = bound(B * L * 4 + nbytes(*cand), 3 * 41 * 2 * B * L, F32_OPS_PER_S)
-    row = dict(ms=ms_all, ms_gather=ms_gather, ms_smooth=ms_smooth,
-               ms_peaks=ms_peaks, library_ms=ms_conv,
+    # this run's data: the columns of each read (outputs past a read are
+    # zeros), its row read once, the whole (B, L) output written once
+    cols = int(ld.to(torch.int64).sum())
+    nbytes_needed = cols * 4 + B * L * 4 + nbytes(combo, ld) + 41 * 4
+    bd = bound(nbytes_needed, OPS_PER_CELL["smooth3_cuda"] * cols,
+               LANE_OPS_PER_S)
+    over_all = bound(nbytes_needed, OPS_PER_CELL["smooth3_cuda"] * B * L,
+                     LANE_OPS_PER_S)
+    first = bound(B * L * 4 + nbytes(*cand),
+                  SMOOTH_FIRST_OPS_PER_ELEMENT * B * L, F32_OPS_PER_S)
+    row = dict(ms=ms_direct, ms_wrapper=ms_wrapper, device_ms=device_ms,
+               plain_ms=plain_ms, library_ms=ms_conv, ms_peaks=ms_peaks,
+               ms_step=ms_step, ms_step_plain=ms_step_plain,
                step_device_activities=len(step),
                step_device_us=sum(a[1] for a in step),
+               peaks_device_activities=len(peaks),
+               peaks_device_us=sum(a[1] for a in peaks),
+               median_device_us=sum(a[1] for a in median),
                locate_batch_device_activities=len(batch),
-               locate_batch_device_us=sum(a[1] for a in batch), **bd)
-    log(f"smoothing and peaks: B={B} L={L}: {json.dumps(row)}")
+               locate_batch_device_us=sum(a[1] for a in batch),
+               columns=cols, **bd)
+    log(f"smoothing kernel SASS: {json.dumps(smooth_sass())} (no FFMA; "
+        f"a pass's group of 8 columns is 328 FMUL and 328 FADD)")
+    log(f"smoothing kernel and peaks: B={B} L={L} ({cols} read columns): "
+        f"{json.dumps(row)}; bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']}: {OPS_PER_CELL['smooth3_cuda']} FP32 "
+        f"instructions a read column on 128 lanes an SM; the kernel at "
+        f"{bd['bound_ms'] / ms_direct:.1%} of it), {over_all['bound_ms']:.4f}"
+        f" ms over all B x L elements, {first['bound_ms']:.4f} ms with the "
+        f"first count ({SMOOTH_FIRST_OPS_PER_ELEMENT} float operations an "
+        f"element at 67 TFLOP/s, as FMAs); the timed rate leaves "
+        f"{LANE_OPS_PER_S * ms_direct / 1e3 / cols:.1f} instructions a read "
+        f"column at 4 a clock an SM; the kernel "
+        f"{ms_conv / ms_direct:.2f}x faster than three conv1d passes")
+    return {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")}
+
+
+def smooth_sass() -> dict:
+    """The smoothing kernel's float32 arithmetic in its SASS: the count
+    of each FMUL, FADD and FFMA form, of the FMULs that read their tap
+    from a uniform register or the constant bank (a kernel parameter),
+    and of all instructions.  Fails on an FFMA: a fused tap would change
+    the bits."""
+    from c3poa_tpu_torch.kernels import _build
+    funcs = _build.sass("smooth")
+    insns = funcs[next(k for k in funcs if "smooth3_kernel" in k)]
+    ops = {}
+    for _addr, insn in insns:
+        op = _build.sass_mnemonic(insn)
+        if op.split(".")[0] in ("FMUL", "FADD", "FFMA"):
+            ops[op] = ops.get(op, 0) + 1
+    fused = sum(n for op, n in ops.items() if op.startswith("FFMA"))
+    if fused:
+        raise SmokeFailure(f"the smoothing kernel's SASS holds {fused} FFMA")
+    uniform = sum(1 for _a, i in insns
+                  if _build.sass_mnemonic(i).startswith("FMUL")
+                  and re.search(r"c\[|\bUR\d", i))
+    return dict(instructions=len(insns), FMUL_uniform_tap=uniform, **ops)
 
 
 def make_pairs(P: int, nq: int, rng):
@@ -1310,13 +1398,15 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: imported {leaked}", file=sys.stderr)
         return 1
 
-    # no PyTorch call computes these DPs or probes: library_ms is null
+    # no PyTorch call computes the DPs or probes: library_ms is null but
+    # for the smoothing (three conv1d passes of its taps)
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=results[k]["launches"],
                     max_abs_err=results[k]["max_abs_err"],
                     ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
                     bound_ms=results[k]["bound_ms"],
-                    bound_by=results[k]["bound_by"], library_ms=None)
+                    bound_by=results[k]["bound_by"],
+                    library_ms=results[k].get("library_ms"))
                for k, (src, rep) in KERNELS.items()]
     log(f"chip_smoke: {time.time() - t_start:.3f} s after the imports")
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,9 @@ reach: every band width the forward kernel is built for, both scorings,
 dummy and empty pairs, band shifts beyond SMAX, long splints, tile seams,
 the adapter hits' ties, dimers, N codes, short and empty reads, combos
 longer than one pass and a read of the widest payload, the host routes
-for long targets and long splints, and the two probe kernels at the int16 extremes, every mode at the smallest and
-largest M they are built for, and int32 overflow.
+for long targets and long splints, the two probe kernels at the int16 extremes, every mode at the smallest and
+largest M they are built for, and int32 overflow, and the smoothing
+kernel bit for bit at every edge length of a read and its tiles.
 
 Needs a CUDA card and nvcc; skips without them.  This file imports no
 jax, so it runs on a machine without it:
@@ -458,3 +459,98 @@ def test_probe_wrappers_reject_what_they_cannot_take(dev):
         probes.int16_probe_cuda(h, h)
     with pytest.raises(ValueError, match="CUDA"):
         probes.int16_probe_cuda(h.cpu(), h.cpu())
+
+
+# the smoothing kernel's tile width (csrc/smooth.cuh: SM_TILE)
+SMOOTH_TILE = 944
+
+
+def _smooth_case(rng, lens, C, L):
+    """Profile-like int32 rows (small scores, runs of zeros, some rows of
+    large values) and a random combo a read."""
+    prof = rng.integers(0, 230, (len(lens), C, L)).astype(np.int32)
+    prof[:, :, L // 3:L // 3 + 150] = 0
+    prof[::4] = rng.integers(-(1 << 20), 1 << 20, prof[::4].shape)
+    combo = rng.integers(0, C, len(lens)).astype(np.int32)
+    return prof, combo, np.asarray(lens, np.int32)
+
+
+def _smooth_plain_cpu(prof, combo, lens):
+    from c3poa_tpu_torch.kernels.smooth import combo_rows, smooth3_batch
+    p, c, n = (torch.from_numpy(a) for a in (prof, combo, lens))
+    return smooth3_batch(combo_rows(p, c).to(torch.float32), n)
+
+
+@pytest.mark.parametrize("L", [64, 2 * SMOOTH_TILE + 64, 4099, 32768])
+def test_smooth_kernel_matches_plain_bitwise(dev, L):
+    """Every edge length of a read and of the kernel's tiles (n = 0, 1,
+    2, 5, 20-22, 41-43, 63-65, T - 1 .. T + 1, L - 1, L, those <= L), a
+    width that is no multiple of 4 (scalar stores) and the locate
+    shape's: bit for bit (-0 against +0 counts) the CPU plain version."""
+    from c3poa_tpu_torch.kernels.smooth import smooth3_cuda
+    T = SMOOTH_TILE
+    lens = [n for n in (0, 1, 2, 5, 20, 21, 22, 41, 42, 43, 63, 64, 65,
+                        T - 1, T, T + 1, L - 1, L) if n <= L]
+    prof, combo, lens = _smooth_case(np.random.default_rng(L), lens, 2, L)
+    got = smooth3_cuda(*(torch.from_numpy(a).to(dev)
+                         for a in (prof, combo, lens)))
+    want = _smooth_plain_cpu(prof, combo, lens)
+    _same(got.view(torch.int32), want.view(torch.int32), f"smooth L={L}")
+
+
+@pytest.mark.parametrize("L", [21, 944, 32768])
+def test_smooth_kernel_one_read_of_full_length(dev, L):
+    """B = 1 and n = L, three combos, the chosen one last."""
+    from c3poa_tpu_torch.kernels.smooth import smooth3_cuda
+    rng = np.random.default_rng(L + 1)
+    prof, _combo, lens = _smooth_case(rng, [L], 3, L)
+    combo = np.array([2], np.int32)
+    got = smooth3_cuda(*(torch.from_numpy(a).to(dev)
+                         for a in (prof, combo, lens)))
+    _same(got.view(torch.int32),
+          _smooth_plain_cpu(prof, combo, lens).view(torch.int32),
+          f"one read L={L}")
+
+
+def test_locate_device_on_card_launches_smooth_kernel(dev):
+    """``locate_device`` on the card goes through the smoothing kernel
+    once a batch, and its outputs equal the CPU route's."""
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.kernels.locate import locate_device
+    from c3poa_tpu_torch.state import splint_array
+    reads, splints = sim.make_dataset(n_reads=5, seed=8,
+                                      insert_len=(500, 900), copies=(3, 6))
+    codes = encode(next(iter(splints.values())))
+    S = splint_array([Combo("s", "+", codes, len(codes)),
+                      Combo("s", "-", revcomp_encoded(codes), len(codes))])
+    enc = [encode(r.seq) for r in reads]
+    L = -(-max(len(c) for c in enc) // 64) * 64
+    R = np.full((len(enc), L), 4, np.int8)
+    lens = np.array([len(c) for c in enc], np.int32)
+    for b, c in enumerate(enc):
+        R[b, :len(c)] = c
+    args = [torch.from_numpy(a) for a in (R, lens, S)]
+    _build.reset_counts()
+    got = locate_device(*(a.to(dev) for a in args), tile=64)
+    assert _build.launch_counts().get("smooth3_cuda", 0) == 1
+    for name, a, b in zip(("combo", "score", "cand_pos", "cand_h", "med",
+                           "deep", "margin"), got,
+                          locate_device(*args, tile=64)):
+        _same(a, b, name)
+
+
+def test_smooth_wrapper_rejects_what_it_cannot_take(dev):
+    from c3poa_tpu_torch.kernels.smooth import smooth3, smooth3_cuda
+    prof = torch.zeros((2, 2, 64), dtype=torch.int32, device=dev)
+    combo = torch.zeros(2, dtype=torch.int32, device=dev)
+    lens = torch.full((2,), 64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        smooth3_cuda(prof.float(), combo, lens)
+    with pytest.raises(ValueError, match="int32"):
+        smooth3(prof, combo.long(), lens)
+    with pytest.raises(ValueError, match="disagree"):
+        smooth3_cuda(prof, combo[:1], lens)
+    with pytest.raises(ValueError, match="L > 20"):
+        smooth3_cuda(prof[:, :, :20].contiguous(), combo, lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        smooth3_cuda(prof.cpu(), combo.cpu(), lens.cpu())
