@@ -169,10 +169,15 @@ def sass(name: str) -> dict:
     """The SASS of ``csrc/<name>.cu`` (``cuobjdump -sass`` on its built
     library), as ``parse_sass`` gives it."""
     load(name)
+    return sass_of(_lib_path(name))
+
+
+def sass_of(path: str) -> dict:
+    """The SASS of the kernel library at ``path``, as ``sass`` gives it."""
     found = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_nvcc()), "cuobjdump")
     return parse_sass(subprocess.run(
-        [found, "-sass", _lib_path(name)], check=True, capture_output=True,
+        [found, "-sass", path], check=True, capture_output=True,
         text=True, timeout=120).stdout)
 
 

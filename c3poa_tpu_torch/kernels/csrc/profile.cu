@@ -5,18 +5,18 @@
 // (start_profile_pallas, body _kernel); XLA twin
 // c3poa_tpu/kernels/sw_profile.py:start_profile_batch; spec
 // c3poa_tpu/ref/sw.py:start_profile.  Output is bit-identical (int32).
-//
-// Recurrence, splint rows i = m-1 .. 0 (pad rows, code 4, leave G at 0):
-//   T[j]    = max(0, G[i+1][j+1] + s(i, j), G[i+1][j] - gap)
-//   G[i][j] = max_{k >= j} (T[k] - gap * (k - j))      (in-row gap runs)
-//   out[j]  = max_i G[i][j]
-// with s = +match / mismatch, and 0 wherever either char is 4 (N / pad).
+// The row arithmetic, which instruction goes to which pipe, and the proof
+// of the warps' wavefront are in profile.cuh, which a g++ driver runs in
+// the CPU tests.
 //
 // What bounds it on an H100: integer issue, not memory.  A launch of
 // B = 128 reads x C = 2 combos x L = 32 k columns x m = 224 rows is
-// ~1.9 G cells, ~10 integer ops each, against 34 MB of output.  The
-// serial chain is the m rows; the in-row reverse running max is the
-// only cross-column dependency.
+// ~1.9 G cells against 34 MB of output; the fewest Hopper instructions a
+// cell are 5.5 (an IDP for the diagonal and its score, a DPX add-max with
+// the floor, an IMAD and half a VIMNMX3 for the thread's total, the gap
+// run's add-max, the column max), 3.5 of them on the 16-lane ALU pipe.
+// The serial chain is the m rows; the in-row gap run is the only
+// cross-column dependency.
 //
 // Design: tiles of TW = 4096 columns are independent (the Pallas
 // kernel's overlapping-tile argument): a local alignment of an m-char
@@ -24,37 +24,52 @@
 // last OV >= that columns are only read (not written) computes its core
 // [0, TW - OV) exactly with a zero right boundary.  One block of 256
 // threads per (tile, combo, read); each thread keeps 16 consecutive
-// columns of G, of the column max and of the read in registers for all
-// m rows, so the DP never touches memory after the first load.  Per row:
-// T with one DPX __vimax3_s32 per column, the reverse running max
-// in-thread, then across the warp with five __shfl_down_sync steps and
-// across the 8 warps through 8 words of shared memory: one
-// __syncthreads per row (the warp totals are double-buffered by row
-// parity).  The neighbour value G[i+1][j+1] of a thread's last column
-// comes from the next lane by shuffle, or, at a warp edge, from the
-// warp-suffix carry it already holds.  Tiles that start past a read's
-// end are exact zeros and only write them.
+// columns of G, of the column max and of the read's one-hot codes in
+// registers for all m rows, so the DP touches only shared memory after
+// the first load: a row's table word, one slot read and one written a
+// warp.  The row's gap run crosses threads by a total a thread, five
+// shuffles across the warp, and across the 8 warps as a wavefront: warp w
+// waits only for warp w + 1's slot of the same row, never for a block
+// barrier.  The rows of the splint's trailing pad are skipped (they leave
+// G = 0).  Tiles that start past a read's end are exact zeros and only
+// write them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "profile.cuh"
+
 namespace {
 
-constexpr int NT = 256;        // threads per block
-constexpr int K = 16;          // consecutive columns per thread
-constexpr int TW = NT * K;     // tile width, core + overlap
-constexpr int NW = NT / 32;    // warps per block
-constexpr int32_t NEG = -(1 << 30);
+constexpr int NT = PF_THREADS;
+constexpr int K = PF_K;
+constexpr int TW = PF_TW;
+constexpr int NW = PF_WARPS;
 constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(NT)
+// v read back from this thread's word of shared memory: a value the
+// compiler cannot recompute, so it stays in a register across the row
+// loop (left to itself, nvcc rebuilds the one-hot codes, spans and lane
+// mask from the loaded words, the thread index and the parameters every
+// row: 235 instructions a row with an S2R, against 120)
+__device__ __forceinline__ int32_t kept(volatile int32_t* word, int32_t v) {
+    *word = v;
+    return *word;
+}
+
+__global__ void __launch_bounds__(NT, 2)
 profile_kernel(const int8_t* __restrict__ reads,
                const int32_t* __restrict__ lens,
                const int8_t* __restrict__ splints,
                int32_t* __restrict__ out,
                int L, int C, int m, int core,
                int match, int mismatch, int gap) {
-    extern __shared__ int8_t sp[];           // this combo's m splint chars
-    __shared__ int32_t wtot[2][NW];          // warp suffix totals, by parity
+    // m + 1 row tables (row t: splint row m - 1 - t), m rows of slots, a
+    // word a thread and the first row of a real code (pf_smem_bytes)
+    extern __shared__ uint32_t smem[];
+    uint32_t* tab = smem;
+    volatile int32_t* cum = reinterpret_cast<volatile int32_t*>(smem + m + 1);
+    int32_t* keep = reinterpret_cast<int32_t*>(smem + pf_keep_word(m));
+    int& first = *reinterpret_cast<int*>(keep + NT);
 
     const int tile = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -74,75 +89,85 @@ profile_kernel(const int8_t* __restrict__ reads,
         return;
     }
 
-    for (int i = tid; i < m; i += NT) sp[i] = splints[(size_t)c * m + i];
-
-    // this thread's 16 read chars (pad 4 past L); L % 16 == 0 and
-    // col0 + jl0 % 16 == 0, so one aligned 16-byte load or none
-    int rc[K];
-    {
-        const int j = col0 + jl0;
-        if (j < L) {
-            const int4 v = *reinterpret_cast<const int4*>(
-                reads + (size_t)b * L + j);
-            const int w[4] = {v.x, v.y, v.z, v.w};
-            #pragma unroll
-            for (int k = 0; k < K; ++k)
-                rc[k] = (int8_t)((w[k >> 2] >> (8 * (k & 3))) & 0xff);
-        } else {
-            #pragma unroll
-            for (int k = 0; k < K; ++k) rc[k] = 4;
-        }
+    if (tid == 0) first = m;
+    __syncthreads();
+    int my_first = m;
+    for (int t = tid; t <= m; t += NT) {
+        const int qc = t < m ? splints[(size_t)c * m + m - 1 - t] : 4;
+        tab[t] = pf_sub_table(qc, match, mismatch);
+        if (pf_real_code(qc)) my_first = min(my_first, t);
+    }
+    my_first = __reduce_min_sync(FULL, my_first);
+    if (lane == 0 && my_first < m) atomicMin(&first, my_first);
+    for (int t = tid; t < m; t += NT) {
+        #pragma unroll
+        for (int w = 0; w < NW; ++w) cum[pf_slot(t, w)] = PF_EMPTY;
+        cum[pf_slot(t, NW)] = 0;
     }
 
+    // this thread's 16 read codes as one-hot bytes (pad 4 past L); L % 16
+    // == 0 and col0 + jl0 % 16 == 0, so one aligned 16-byte load or none
+    volatile int32_t* word = keep + tid;
+    uint32_t hot[K];
+    {
+        const int j = col0 + jl0;
+        int4 v = make_int4(0x04040404, 0x04040404, 0x04040404, 0x04040404);
+        if (j < L)
+            v = *reinterpret_cast<const int4*>(reads + (size_t)b * L + j);
+        const int w[4] = {v.x, v.y, v.z, v.w};
+        #pragma unroll
+        for (int k = 0; k < K; ++k)
+            hot[k] = (uint32_t)kept(
+                word, (int32_t)pf_hot((w[k >> 2] >> (8 * (k & 3))) & 0xff));
+    }
+
+    // the row below the splint: G = 0
     int32_t G[K], cm[K];
     #pragma unroll
     for (int k = 0; k < K; ++k) { G[k] = 0; cm[k] = 0; }
-    int32_t gnext = 0;   // previous row's G at local column jl0 + K
+    int32_t right = 0;
+    const int32_t ngap = kept(word, -gap);
+    int32_t span[5];                         // the scan's steps, d = 2^n
+    #pragma unroll
+    for (int n = 0; n < 5; ++n) span[n] = kept(word, pf_span(1 << n, gap));
+    const int32_t dist = kept(word, pf_span(31 - lane, gap));
+    const int32_t lane_mask = kept(word, pf_lane_mask(lane));
+    const int32_t warp_span = kept(word, pf_span(32, gap));
+    const bool publisher = kept(word, lane) == 0;
     __syncthreads();
 
-    for (int t = 0; t < m; ++t) {
-        const int sc = sp[m - 1 - t];
-        int32_t A[K];
-        #pragma unroll
-        for (int k = 0; k < K; ++k) {
-            const int32_t gn = (k + 1 < K) ? G[k + 1] : gnext;
-            const int32_t s = (sc == 4 || rc[k] == 4)
-                ? 0 : (sc == rc[k] ? match : mismatch);
-            const int32_t T = __vimax3_s32(gn + s, G[k] - gap, 0);
-            A[k] = T - gap * (jl0 + k);
-        }
-        #pragma unroll
-        for (int k = K - 2; k >= 0; --k) A[k] = max(A[k], A[k + 1]);
+    const int t0 = first;
+    const uint32_t* tabp = tab + t0;
+    volatile int32_t* src = cum + pf_slot(t0, pf_source(warp));
+    volatile int32_t* dst = cum + pf_slot(t0, warp);
+    uint32_t tabt = tabp[0];
+    for (int t = t0; t < m; ++t) {
+        const uint32_t tabn = *++tabp;
+        int32_t Y[K];
+        pf_cells<K>(G, right, tabt, hot, ngap, Y);
 
         // inclusive suffix max over the warp's lanes
-        int32_t s = A[0];
+        int32_t s = pf_total(Y);
         #pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int32_t o = __shfl_down_sync(FULL, s, d);
-            if (lane + d < 32) s = max(s, o);
-        }
-        int32_t ex = __shfl_down_sync(FULL, s, 1);
-        if (lane == 31) ex = NEG;
-        const int par = t & 1;
-        if (lane == 0) wtot[par][warp] = s;
-        __syncthreads();
-        int32_t carry = NEG;   // max over all columns of later warps
-        #pragma unroll
-        for (int w = 0; w < NW; ++w)
-            if (w > warp) carry = max(carry, wtot[par][w]);
-        const int32_t cin = max(ex, carry);
+        for (int n = 0; n < 5; ++n)
+            s = pf_scan(s, __shfl_down_sync(FULL, s, 1 << n), span[n]);
+        const int32_t ex = __shfl_down_sync(FULL, s, 1);
 
-        #pragma unroll
-        for (int k = 0; k < K; ++k) {
-            G[k] = max(A[k], cin) + gap * (jl0 + k);
-            cm[k] = max(cm[k], G[k]);
-        }
-        // G at column jl0 + K for the next row: the next lane's first
-        // column, or across a warp edge max_{k >= jl0+K} A[k] + gap*(jl0+K)
-        // = carry + gap*(jl0+K); zero past the tile's right end
-        const int32_t nb = __shfl_down_sync(FULL, G[0], 1);
-        gnext = (lane < 31) ? nb
-              : (warp < NW - 1 ? carry + gap * (jl0 + K) : 0);
+        // what lies right of this warp: its right neighbour's slot
+        int32_t carry;
+        do {
+            carry = *src;
+        } while (carry == PF_EMPTY);
+        if (publisher) *dst = pf_publish(s, carry, warp_span);
+        src += PF_CUM_STRIDE;
+        dst += PF_CUM_STRIDE;
+
+        // G at the next thread's first column: what this thread's gap run
+        // starts from, and the next row's right neighbour of its last
+        // column
+        right = pf_cin(ex, lane_mask, carry, dist);
+        pf_finish<K>(G, right, ngap, cm);
+        tabt = tabn;
     }
 
     #pragma unroll
@@ -166,14 +191,24 @@ int c3t_tile_width() { return TW; }
 
 // reads (B, L) int8, lens (B,) int32, splints (C, m) int8, out (B, C, L)
 // int32; all contiguous on the device.  L % 16 == 0; ov = the tile
-// overlap (multiple of 16, < TW).  Launches on ``stream``.
+// overlap (multiple of 16, < TW); match and mismatch signed bytes and
+// 0 <= gap <= 2^16 (else cudaErrorInvalidValue).  Launches on ``stream``.
 int c3t_start_profile(const void* reads, const void* lens,
                       const void* splints, void* out,
                       int B, int L, int C, int m, int ov,
                       int match, int mismatch, int gap, void* stream) {
+    if (!pf_scoring_fits(match, mismatch, gap))
+        return (int)cudaErrorInvalidValue;
     const int core = TW - ov;
     const dim3 grid((L + core - 1) / core, C, B);
-    profile_kernel<<<grid, NT, m, (cudaStream_t)stream>>>(
+    const unsigned smem = pf_smem_bytes(m);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            profile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    profile_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
         (const int8_t*)reads, (const int32_t*)lens, (const int8_t*)splints,
         (int32_t*)out, L, C, m, core, match, mismatch, gap);
     return (int)cudaGetLastError();

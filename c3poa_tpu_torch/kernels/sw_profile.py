@@ -13,8 +13,10 @@ The in-row term is a reverse running max: G[i] = revcummax(T - gap*j) +
 gap*j with T = max(0, diag, up).  Code 4 (N / pad) scores 0 against
 everything, so the profile past each read's end is exactly 0.
 
-``start_profile_batch`` is the plain torch version; ``start_profile_cuda``
-launches the hand-written kernel ``csrc/profile.cu``; ``start_profile``
+``start_profile_batch`` is the plain torch version (the tests' reference;
+no CUDA tensor takes it); ``start_profile_cuda`` launches the hand-written
+kernel ``csrc/profile.cu``, whose row arithmetic is ``csrc/profile.cuh``
+(run on the host by the CPU tests' g++ driver); ``start_profile``
 dispatches on the tensors' device.
 """
 

@@ -71,6 +71,20 @@ kernel on the inputs of ``c3poa_tpu_torch.tools.adapters_time`` (the
 postprocess shape, the general path, a long read, small batches), in the
 order earlier, current, current, earlier.
 
+    python3 chip_smoke.py --parent-profile DIR [--parent-profile DIR2 ...]
+
+also builds each ``DIR/profile.cu`` (an earlier revision of the profile
+kernel, with its headers, the same C signature ``c3t_start_profile``;
+for the parent: ``git show HEAD~:c3poa_tpu_torch/kernels/csrc/profile.cu``
+into a git-ignored directory) into a temporary directory, prints its
+registers and its row loop's SASS by pipe, requires its output to equal
+the current kernel's at the locate shape, and times the two there in the
+order earlier, current, current, earlier.
+
+Step 4 also prints the peak candidates' bound: one read of the (B, L)
+float32 smoothed rows and the lengths, and the outputs written once, over
+the memory rate.
+
 Exits non-zero, printing no result line, when there is no CUDA device,
 when the repo's packages are missing, or when any phase fails.  Work
 files go to ``build/chip_smoke/`` in the checkout.
@@ -137,14 +151,14 @@ LANE_OPS_PER_S = 132 * SM_LANE_OPS_PER_S
 # the floor (VIADDMNMX), the tie rank cleared (LOP3), the cell as the
 # next column's left and the next row's up (2 IADD), the column's key
 # (VIADDMNMX); the lane's step around the cells is not counted.  Profile,
-# the fewest Hopper instructions a cell of the recurrence in the form
-# csrc/profile.cu keeps, a = G - gap * j, over 128 lanes an SM: the
-# substitution plus gap from a per-row table by the read's code (PRMT),
-# the diagonal and the up term each folded into a max with the column's
-# floor -gap * j by one DPX VIADDMNMX (2), the in-row running max (IMNMX),
-# the thread's share of its 16 columns' total for the scan across the
-# warp (a VIMNMX3 tree, 8 for 16 columns: 0.5), the column max (IMNMX);
-# the row's shuffles and barrier are not counted.  Smoothing, per column
+# the fewest Hopper instructions a cell, over 128 lanes an SM, in the
+# form csrc/profile.cuh keeps: the diagonal with its score (IDP, dp4a of
+# the row's score bytes and the read's one-hot code), T with the up term
+# and the floor 0 (VIADDMNMX.RELU), T less the gap to the thread's first
+# column (IMAD) and its share of the thread's total (a VIMNMX3 tree, 8 for
+# 16 columns: 0.5), the gap run (VIADDMNMX), the column max (IMNMX); the
+# row's shuffles and slots are not counted.  (The a = G - gap * j form,
+# with the score from a byte permute, counts as many.)  Smoothing, per column
 # of a read (j < n): 3 passes x 41 taps, each one FMUL and one FADD;
 # bit-identity with the plain version forbids the FMA (and the
 # symmetric-tap shortcut), so these are 246 FP32 instructions on 128
@@ -288,8 +302,9 @@ def make_dataset():
     return reads, splints
 
 
-def phase_profile(dev, reads, splints, results):
-    """Kernel 1 at the locate shape: 128 reads, C = 2, L = 32768."""
+def phase_profile(dev, reads, splints, results, parent_dirs=()):
+    """Kernel 1 at the locate shape: 128 reads, C = 2, L = 32768; beside
+    the earlier profile kernels of ``parent_dirs``."""
     import numpy as np
     import torch
 
@@ -340,6 +355,8 @@ def phase_profile(dev, reads, splints, results):
     profile_sass(need / ms * 1e3)
     results["start_profile_cuda"] = dict(max_abs_err=err, ms=ms,
                                          plain_ms=plain_ms, **bd)
+    for src_dir in parent_dirs:
+        compare_profiles(src_dir, Rd, Sd, ld, got, bd["bound_ms"])
 
     # the smoothing kernel on the card against the CPU plain version, bit
     # for bit (-0 against +0 counts), and the f32-vs-f64 error the peak
@@ -388,9 +405,13 @@ def profile_sass(cells_per_s: float) -> None:
     and thread by pipe and by opcode, and a cell's share (a thread holds
     16 columns of a row); beside it what the timed rate of this run's
     cells leaves a cell at four warp instructions a clock an SM (ALU and
-    FMA pipes) and at two (the ALU pipe alone)."""
+    FMA pipes) and at two (the ALU pipe alone); and the registers and
+    spills ptxas reports."""
     from c3poa_tpu_torch.kernels import _build
     from c3poa_tpu_torch.tools import banded_sass
+    for line in _build.build_logs.get("profile", "").splitlines():
+        if "registers" in line or "spill" in line or "stack" in line:
+            log(f"  profile ptxas: {line.strip()}")
     # past the kernel's first EXIT: the early return of tiles past a
     # read's end
     res = banded_sass.row_pipes(_build.sass("profile"), "profile_kernel", 1)
@@ -401,6 +422,57 @@ def profile_sass(cells_per_s: float) -> None:
         f"opcodes {json.dumps(res['opcodes'])}; a cell "
         f"{json.dumps(per_cell)}; the timed rate leaves {at_four:.2f} "
         f"instructions a cell at 4 a clock an SM, {at_four / 2:.2f} at 2")
+    # the row loop's design: no special-register read, no block barrier,
+    # no compare or select for the substitution (its two ISETP are the
+    # slot's wait and the loop's end), at most 10 instructions a cell
+    ops = res["opcodes"]
+    banned = sorted({"S2R", "BAR", "SEL"} & set(ops))
+    if banned or ops.get("ISETP", 0) > 2 or per_cell["max"] > 10:
+        raise SmokeFailure(f"the profile kernel's row loop holds {banned}, "
+                           f"{ops.get('ISETP', 0)} ISETP and "
+                           f"{per_cell['max']} instructions a cell")
+
+
+def compare_profiles(src_dir: str, Rd, Sd, ld, want, bound_ms) -> None:
+    """The profile kernel of ``src_dir/profile.cu`` (an earlier revision,
+    with its headers; the same C interface) built by nvcc into a
+    temporary directory, held to the current kernel's output and timed
+    beside it on the same inputs: earlier, current, current, earlier."""
+    import torch
+
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.kernels.sw_profile import (start_profile_cuda,
+                                                    tile_overlap)
+    from c3poa_tpu_torch.tools import banded_sass
+
+    tmp = tempfile.mkdtemp(prefix="parent_profile_")
+    try:
+        lib, so = build_earlier(src_dir, "profile", tmp)
+        res = banded_sass.row_pipes(_build.sass_of(so), "profile_kernel", 1)
+        log(f"  earlier profile row loop SASS (a row and thread): "
+            f"{json.dumps({k: res[k] for k in ('min', 'max')})}; opcodes "
+            f"{json.dumps(res['opcodes'])}")
+        lib = _build.bind(lib, _build.SIGNATURES["profile"])
+        (B, L), (C, m) = Rd.shape, Sd.shape
+
+        def earlier():
+            out = torch.empty((B, C, L), dtype=torch.int32, device=Rd.device)
+            _build.launch(lib, "c3t_start_profile", "earlier_profile", Rd,
+                          Rd.data_ptr(), ld.data_ptr(), Sd.data_ptr(),
+                          out.data_ptr(), B, L, C, m, tile_overlap(m), 1,
+                          -2, 2)
+            return out
+
+        require_equal("earlier profile", earlier(), want)
+        current = lambda: start_profile_cuda(Rd, Sd, ld)  # noqa: E731
+        times = [("earlier", cuda_time_ms(earlier, 10)),
+                 ("current", cuda_time_ms(current, 10)),
+                 ("current", cuda_time_ms(current, 10)),
+                 ("earlier", cuda_time_ms(earlier, 10))]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"profile, earlier ({src_dir}) and current kernel, in turns: "
+        f"{json.dumps(times)}; bound {bound_ms:.4f} ms")
 
 
 def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo):
@@ -477,9 +549,14 @@ def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo):
                      LANE_OPS_PER_S)
     first = bound(B * L * 4 + nbytes(*cand),
                   SMOOTH_FIRST_OPS_PER_ELEMENT * B * L, F32_OPS_PER_S)
+    # the peak candidates' bound: one read of the smoothed rows and the
+    # lengths, the outputs written once, over the memory rate
+    peaks_bd = bound(nbytes(sm, ld, *cand), 0)
     row = dict(ms=ms_direct, ms_wrapper=ms_wrapper, device_ms=device_ms,
                plain_ms=plain_ms, library_ms=ms_conv, ms_peaks=ms_peaks,
                ms_step=ms_step, ms_step_plain=ms_step_plain,
+               peaks_bound_ms=peaks_bd["bound_ms"],
+               peaks_bound_by=peaks_bd["bound_by"],
                step_device_activities=len(step),
                step_device_us=sum(a[1] for a in step),
                peaks_device_activities=len(peaks),
@@ -733,6 +810,28 @@ def phase_adapters(dev, results, parent_dir=None):
             f"reversed): {json.dumps(r)}")
 
 
+def build_earlier(src_dir: str, name: str, tmp: str):
+    """``src_dir/<name>.cu`` (an earlier revision, with its headers)
+    built by nvcc into ``tmp``, its registers and spills logged: (the
+    loaded library, its path)."""
+    import ctypes
+
+    from c3poa_tpu_torch.kernels import _build
+
+    so = os.path.join(tmp, f"earlier_{name}.so")
+    done = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+         os.path.join(src_dir, f"{name}.cu")], capture_output=True,
+        text=True, timeout=600)
+    if done.returncode:
+        raise SmokeFailure(f"earlier {name}: nvcc failed\n{done.stdout}"
+                           f"{done.stderr}")
+    for line in (done.stdout + done.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  earlier {name} ptxas: {line.strip()}")
+    return ctypes.CDLL(so), so
+
+
 def earlier_adapters(src_dir: str, tmp: str):
     """The adapter kernel of ``src_dir/adapters.cu`` (with its
     ``adapters.cuh``) of the earlier C interface (six pointers: a (B, C,
@@ -746,19 +845,8 @@ def earlier_adapters(src_dir: str, tmp: str):
     from c3poa_tpu_torch.kernels import _build
     from c3poa_tpu_torch.pipeline.backend import NumpyBackend
 
-    so = os.path.join(tmp, "earlier_adapters.so")
-    done = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-         os.path.join(src_dir, "adapters.cu")], capture_output=True,
-        text=True, timeout=600)
-    if done.returncode:
-        raise SmokeFailure(f"earlier adapters: nvcc failed\n{done.stdout}"
-                           f"{done.stderr}")
-    for line in (done.stdout + done.stderr).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  earlier adapters ptxas: {line.strip()}")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib = _build.bind(ctypes.CDLL(so),
+    lib = _build.bind(build_earlier(src_dir, "adapters", tmp)[0],
                       {"c3t_adapter_hits": [P] * 6 + [I] * 8 + [P]})
 
     def run(R, lens, A, alens):
@@ -1327,6 +1415,10 @@ def main(argv=None) -> int:
     ap.add_argument("--parent-adapters", metavar="DIR",
                     help="an earlier adapters.cu (with its adapters.cuh) "
                          "to time beside the current kernel")
+    ap.add_argument("--parent-profile", metavar="DIR", action="append",
+                    default=[],
+                    help="an earlier profile.cu (with its headers) to time "
+                         "beside the current kernel (may be repeated)")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -1377,7 +1469,8 @@ def main(argv=None) -> int:
         reads, splints = make_dataset()
         log(f"dataset: {len(reads)} reads in {time.time() - t0:.3f} s")
         for phase, args in (
-                (phase_profile, (dev, reads, splints, results)),
+                (phase_profile, (dev, reads, splints, results,
+                                 opts.parent_profile)),
                 (phase_banded, (dev, results)),
                 (phase_adapters, (dev, results, opts.parent_adapters)),
                 (phase_probes, (dev, results)),

@@ -388,6 +388,69 @@ def test_sass_row_pipes_of_the_built_profile_kernel():
     assert res["opcodes"]["SHFL"] == 7 and res["opcodes"]["BAR"] == 1
 
 
+def test_sass_row_pipes_of_the_2_13a_profile_kernel():
+    """The reader on the profile kernel rebuilt in G form with a warp
+    wavefront (``tests/profile_kernel_2_13a.sass.gz``: ``cuobjdump -sass``
+    of the library nvcc built for sm_90a from this revision's
+    ``profile.cu``, its shared memory all dynamic).  Its first EXIT (0x2e0) is the
+    early return of tiles past a read's end; the row loop (0x2750-0x2ec0,
+    one splint row of 16 columns a thread) lies past it and has one path:
+    120 instructions, 7.5 a cell (20.1 before), 68 of them on the ALU
+    pipe.  No special-register read and no block barrier in it (the warps
+    wait only on their right neighbour's slot), no compare or select for
+    the substitution (16 IDP take the score with the diagonal); its two
+    ISETP are the slot's wait and the loop's end."""
+    import gzip
+    with gzip.open(os.path.join(ROOT, "tests",
+                                "profile_kernel_2_13a.sass.gz"), "rt") as f:
+        funcs = _build.parse_sass(f.read())
+    body = next(iter(funcs.values()))
+    with pytest.raises(RuntimeError, match="no loop with a warp shuffle"):
+        banded_sass.row_loop(body)
+    assert banded_sass.row_loop(body, 1) == (0x2750, 0x2ec0)
+    res = banded_sass.row_pipes(funcs, "profile_kernel", 1)
+    assert res["max"] == res["min"] == res["loop"] == dict(
+        all=120, alu=68, fma=33, xu=0, shfl=6, lds=3, mem=0, ctrl=7, uni=3,
+        other=0)
+    assert res["max"]["all"] / 16 <= 10
+    ops = res["opcodes"]
+    assert not {"S2R", "BAR", "SEL", "PRMT"} & set(ops)
+    assert ops["IDP"] == 16 and ops["ISETP"] == 2 and ops["SHFL"] == 6
+    assert ops["VIADDMNMX"] == 39 and ops["VIMNMX3"] == 7
+
+
+@pytest.mark.parametrize("swap", [
+    None, "S2R R0, SR_TID.X", "BAR.SYNC.DEFER_BLOCKING 0x0",
+    "ISETP.NE.AND P1, PT, R2, R3, PT"])
+def test_chip_smoke_refuses_a_profile_row_loop_that_regresses(monkeypatch,
+                                                              swap):
+    """``chip_smoke.profile_sass`` reads the built kernel's row loop (here
+    the fixture's, through a stand-in for ``cuobjdump``) and fails when
+    one of its add-maxes turns into a special-register read, a block
+    barrier or a third compare."""
+    import gzip
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    with gzip.open(os.path.join(ROOT, "tests",
+                                "profile_kernel_2_13a.sass.gz"), "rt") as f:
+        funcs = _build.parse_sass(f.read())
+    if swap is not None:
+        body = next(iter(funcs.values()))
+        lo, _hi = banded_sass.row_loop(body, 1)
+        n = next(n for n, (a, i) in enumerate(body)
+                 if a >= lo and _build.sass_mnemonic(i) == "VIADDMNMX")
+        body[n] = (body[n][0], swap)
+    monkeypatch.setattr(_build, "sass", lambda name: funcs)
+    if swap is None:
+        smoke.profile_sass(1e12)
+    else:
+        with pytest.raises(smoke.SmokeFailure, match="row loop holds"):
+            smoke.profile_sass(1e12)
+
+
 @pytest.mark.parametrize("op,pipe", [
     ("IADD3", "alu"), ("LOP3.LUT", "alu"), ("ISETP.GE.AND", "alu"),
     ("VIADDMNMX", "alu"), ("VIMNMX", "alu"), ("SHF.L.W.U32.HI", "alu"),

@@ -46,28 +46,55 @@ def _same(a, b, what):
     assert torch.equal(a.cpu(), b.cpu()), what
 
 
-@pytest.mark.parametrize("B,L,splint_len,seed", [
-    (3, 64, 20, 0),            # one tile, tiny splint
-    (5, 12288, 224, 1),        # tile seams
-    (4, 8192 + 64, 480, 2),    # long splint: wide overlap
-    (2, 4096, 200, 3),
+def _max_fit_m():
+    from c3poa_tpu_torch.kernels.sw_profile import profile_fits
+    m = 1
+    while profile_fits(m + 1):
+        m += 1
+    return m
+
+
+@pytest.mark.parametrize("B,L,splint_len,seed,width,ends", [
+    (3, 64, 20, 0, None, None),        # one tile, tiny splint
+    (5, 12288, 224, 1, None, None),    # tile seams
+    (4, 8192 + 64, 480, 2, None, None),  # long splint: wide overlap
+    (2, 4096, 200, 3, None, None),
+    (3, 64, 1, 4, 1, None),            # one splint row
+    (4, 8192, 33, 5, 33, "seams"),     # a warp and one row
+    (2, 1024, "max", 6, "max", None),  # the widest splint: 256 new
+                                       # columns a tile, > 48 KB of slots
+    (8, 7504, 200, 7, None, "seams"),  # reads ending at core - 1, core,
+                                       # core + 1 and length 0
+    (200, 8192, 200, 8, None, None),   # 1200 blocks: several waves
+    (2, 8192, 1200, 9, None, None),    # m = 1216: just past 48 KB of
+                                       # shared memory with the kernel's
+                                       # word a thread
 ])
-def test_profile_kernel_matches_plain(dev, B, L, splint_len, seed):
+def test_profile_kernel_matches_plain(dev, B, L, splint_len, seed, width,
+                                      ends):
     from c3poa_tpu_torch.kernels.sw_profile import (start_profile_batch,
                                                     start_profile_cuda,
                                                     tile_overlap, TILE_WIDTH)
     from c3poa_tpu_torch.state import splint_array
     rng = np.random.default_rng(seed)
+    if splint_len == "max":
+        splint_len = width = _max_fit_m()
     codes = encode(sim.random_seq(rng, splint_len))
     S = splint_array([Combo("s", "+", codes, len(codes)),
                       Combo("s", "-", revcomp_encoded(codes), len(codes))])
+    if width is not None:      # the splint's own width, not a multiple of 32
+        S = np.ascontiguousarray(S[:, :width])
     R = np.full((B, L), 4, np.int8)
     lens = np.zeros(B, np.int32)
+    core = TILE_WIDTH - tile_overlap(S.shape[1])
     for b in range(B):
         n = int(rng.integers(0, L + 1)) if b else L
+        if ends == "seams":
+            n = min(L, [L, 0, core - 1, core, core + 1, 2 * core - 1,
+                        2 * core, 2 * core + 1][b % 8])
         R[b, :n] = rng.integers(0, 4, n)
+        R[b, :n][rng.random(n) < 0.01] = 4       # N inside the reads
         lens[b] = n
-    core = TILE_WIDTH - tile_overlap(S.shape[1])
     if L > core + splint_len:   # an occurrence across the first seam
         a = core - splint_len // 2
         R[0, a:a + splint_len] = codes
