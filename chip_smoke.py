@@ -40,12 +40,23 @@ repo's Python dependencies (no JAX needed or imported):
    (``--coordinator localhost:<port> --num_processes N``): every merged
    tree must equal the numpy backend's byte for byte, and every process
    must have launched the consensus kernels;
-10. runs the consensus and postprocess runs through
+10. kills a consensus CLI on the card (``--backend cuda -g 125
+   --resume``, through ``--cli-process``, in a session of its own) with
+   SIGKILL once its manifest records 2 of the 8 groups and it has
+   launched every consensus kernel, then runs it again to its end: the
+   tree must equal the numpy backend's and both sessions must have
+   launched every consensus kernel; then runs the consensus CLI (``-g
+   250``) and the postprocess CLI (``-g 500``) on the card under
+   ``--rss-restart-mb 1``, a restart after every group: at least 3
+   restarts each, every consensus group ending a session, both trees
+   equal to numpy's; prints each run's wall, its sessions and the wall
+   a session beside the uninterrupted runs' (the cost of a restart);
+11. runs the consensus and postprocess runs through
    ``TorchBackend("cuda", devices=["cuda:0"] * n)`` for n = 2 and 3 (n
    streams of the one card; no second card is used): byte-identical to
    numpy, each kernel launched at least n times as often as on one
    device;
-11. prints one JSON line with the kernels (times, launches, and the
+12. prints one JSON line with the kernels (times, launches, and the
    least time the card could take for the same work), the
    ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}`` line.
 
@@ -91,8 +102,9 @@ files go to ``build/chip_smoke/`` in the checkout.
 
     python3 chip_smoke.py --cli-process OUT.json CLI_ARGS...
 
-is one process of step 9: ``python -m c3poa_tpu_torch.cli CLI_ARGS``,
-then its kernel launches, peak device memory and seconds into OUT.json.
+is one process of steps 9 and 10: ``python -m c3poa_tpu_torch.cli
+CLI_ARGS``, then its kernel launches, peak device memory and seconds into
+OUT.json (rewritten while it runs).
 """
 
 from __future__ import annotations
@@ -119,6 +131,15 @@ SWEEP = (1, 2, 4, 8)
 SWEEP_GROUP = 125
 # seconds one process of the sweep may take
 PROCESS_TIMEOUT = 300
+# phase_resume: seconds between a --cli-process report's rewrites, the
+# group sizes of the supervised runs (4 groups each: the 1000 reads, and
+# the ~2000 postprocess reads), the restarts they must make at least, and
+# the seconds a supervised run may take
+REPORT_EVERY_S = 0.1
+RESUME_GROUP = 250
+POST_RESUME_GROUP = 500
+RESUME_RESTARTS = 3
+RESUME_TIMEOUT = 600
 # the mesh phase: streams of the one card, in turns with one device
 MESH_SHARES = (1, 2, 3, 1)
 
@@ -1104,7 +1125,7 @@ def tree_bytes(root: str) -> dict:
     return tree
 
 
-def phase_postprocess_end_to_end(results):
+def phase_postprocess_end_to_end(results, walls):
     """The postprocess run through its CLI on the card, on the consensus
     run's reads (no adapters: rejected) followed by consensus-like reads
     with adapters and four oligo-dT indexes; then the numpy backend on
@@ -1158,7 +1179,7 @@ def phase_postprocess_end_to_end(results):
         rc = cli_postprocess.main(["-i", post_in, "-a", adapters_fa,
                                    "-x", indexes_fa, "-o", out_cuda, "-t",
                                    "--backend", "cuda"])
-        wall = time.time() - t0
+        wall = walls["postprocess"] = time.time() - t0
         counts = _build.launch_counts()
     finally:
         TorchBackend.adapter_hits = device_stage
@@ -1247,7 +1268,7 @@ def require_same_outputs(what: str, out: str, ref: str) -> None:
                                f"backend's")
 
 
-def phase_processes():
+def phase_processes(walls):
     """The consensus CLI on the 1000 reads in 8 groups as 1, 2, 4 and 8
     processes sharing the card (gloo over localhost; each process its
     round-robin share of the groups, host 0 merging): wall from the
@@ -1282,6 +1303,7 @@ def phase_processes():
                          "-g", str(SWEEP_GROUP), *multi,
                          *(["--process_id", str(h)] if n > 1 else [])])
         t0, wall = run_processes(cmds, logs, env)
+        walls[f"processes_{n}"] = wall
         require_same_outputs(f"{n} processes", out, out_np)
         rows = []
         for h in range(n):
@@ -1320,12 +1342,16 @@ def phase_processes():
 
 
 def cli_process(report: str, argv) -> int:
-    """One process of ``phase_processes``: the consensus CLI on ``argv``
-    after the card's context is made, then into ``report`` the time this
-    function was entered, the seconds of the imports, of the context and
-    of the CLI call, the CLI's CPU seconds (all threads), its kernel
-    launches (counted from 0 here) and peak device memory."""
+    """One process of ``phase_processes`` and ``phase_resume``: the
+    consensus CLI on ``argv`` after the card's context is made, then into
+    ``report`` the time this function was entered, the seconds of the
+    imports, of the context and of the CLI call, the CLI's CPU seconds
+    (all threads), its kernel launches (counted from 0 here) and peak
+    device memory.  The report is also rewritten every REPORT_EVERY_S
+    while the CLI runs (``rc`` null), so a process killed mid-run leaves
+    its launches so far."""
     import resource
+    import threading
     entered = time.time()
     import torch
     sys.path.insert(0, ROOT)
@@ -1337,17 +1363,207 @@ def cli_process(report: str, argv) -> int:
     _build.reset_counts()
     t0 = time.time()
     ru = resource.getrusage(resource.RUSAGE_SELF)
-    rc = cli.main(argv)
-    ru2 = resource.getrusage(resource.RUSAGE_SELF)
-    with open(report, "w") as fh:
-        json.dump(dict(rc=rc, entered=entered, import_s=imported - entered,
-                       context_s=t0 - imported, cli_s=time.time() - t0,
-                       cpu_s=(ru2.ru_utime + ru2.ru_stime) -
-                       (ru.ru_utime + ru.ru_stime),
-                       launches=_build.launch_counts(),
-                       max_memory_allocated=torch.cuda.max_memory_allocated()),
-                  fh)
+
+    def write(rc):
+        ru2 = resource.getrusage(resource.RUSAGE_SELF)
+        with open(report + ".tmp", "w") as fh:
+            json.dump(dict(rc=rc, entered=entered,
+                           import_s=imported - entered,
+                           context_s=t0 - imported, cli_s=time.time() - t0,
+                           cpu_s=(ru2.ru_utime + ru2.ru_stime) -
+                           (ru.ru_utime + ru.ru_stime),
+                           launches=_build.launch_counts(),
+                           max_memory_allocated=(
+                               torch.cuda.max_memory_allocated())), fh)
+        os.replace(report + ".tmp", report)
+
+    stop = threading.Event()
+
+    def progress():
+        while not stop.wait(REPORT_EVERY_S):
+            write(None)
+
+    reporter = threading.Thread(target=progress, daemon=True)
+    reporter.start()
+    try:
+        rc = cli.main(argv)
+    finally:
+        stop.set()
+        reporter.join()
+    write(rc)
     return rc
+
+
+def read_json(path: str):
+    """The JSON in ``path``, or None while it is missing or half
+    written."""
+    try:
+        with open(path) as fh:
+            return json.load(fh)
+    except (OSError, ValueError):
+        return None
+
+
+def supervised(what: str, cmd, env, log_path: str) -> tuple[float, int]:
+    """Runs ``cmd`` (a CLI under ``--rss-restart-mb 1``) to its end
+    within RESUME_TIMEOUT; requires exit 0 and at least RESUME_RESTARTS
+    restarts.  Returns (wall seconds, sessions)."""
+    t0 = time.time()
+    with open(log_path, "w") as fh:
+        try:
+            rc = subprocess.run(cmd, cwd=ROOT, env=env, stdout=fh,
+                                stderr=subprocess.STDOUT,
+                                timeout=RESUME_TIMEOUT).returncode
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"{what}: still running after "
+                               f"{RESUME_TIMEOUT} s") from None
+    wall = time.time() - t0
+    text = open(log_path).read()
+    if rc != 0:
+        raise SmokeFailure(f"{what}: exited {rc}:\n{text[-3000:]}")
+    found = re.findall(r"rss supervisor: (\d+) restart\(s\)", text)
+    restarts = int(found[-1]) if found else 0
+    if restarts < RESUME_RESTARTS:
+        raise SmokeFailure(f"{what}: {restarts} restart(s), fewer than "
+                           f"{RESUME_RESTARTS}:\n{text[-3000:]}")
+    return wall, restarts + 1
+
+
+def phase_resume(walls):
+    """Durability on the card, three runs against the numpy arms:
+    (a) the consensus CLI at ``-g 125`` with ``--resume``, in a session
+    of its own through ``--cli-process``, SIGKILLed once its manifest
+    records 2 groups and its report shows every consensus kernel
+    launched, then run again to its end: the tree equals numpy's, and
+    both sessions launched every consensus kernel; (b) the consensus CLI
+    at ``-g 250`` under ``--rss-restart-mb 1`` (a restart after every
+    group); (c) the postprocess CLI at ``-g 500`` under
+    ``--rss-restart-mb 1``.  Prints each run's wall, its sessions and the
+    wall a session beside the uninterrupted runs' walls."""
+    import signal
+
+    reads_fq = os.path.join(WORK, "reads.fastq")
+    splint_fa = os.path.join(WORK, "splint.fasta")
+    out_np = os.path.join(WORK, "out_numpy")
+    env = dict(os.environ, C3POA_PROGRESS="0", PYTHONPATH=ROOT)
+    cold = walls["processes_1"]
+
+    # (a) kill -9 after 2 groups, then --resume to the end
+    out = os.path.join(WORK, "out_resume")
+    shutil.rmtree(out, ignore_errors=True)
+    args = ["-r", reads_fq, "-s", splint_fa, "-o", out, "--backend", "cuda",
+            "-g", str(SWEEP_GROUP), "--resume"]
+    groups = -(-N_READS // SWEEP_GROUP)
+    reports = [os.path.join(WORK, f"resume_session_{k}.json")
+               for k in (0, 1)]
+    logs = [os.path.join(WORK, f"resume_session_{k}.log") for k in (0, 1)]
+    for path in reports:
+        if os.path.exists(path):
+            os.remove(path)
+    manifest = os.path.join(out, ".c3poa_progress.json")
+    t0 = time.time()
+    with open(logs[0], "w") as fh:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--cli-process", reports[0], *args],
+                                cwd=ROOT, env=env, stdout=fh,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise SmokeFailure(
+                    f"resume: the first session exited "
+                    f"{proc.returncode} before the kill:\n"
+                    f"{open(logs[0]).read()[-3000:]}")
+            if time.time() - t0 > PROCESS_TIMEOUT:
+                raise SmokeFailure("resume: no 2 groups recorded within "
+                                   f"{PROCESS_TIMEOUT} s")
+            done = (read_json(manifest) or {}).get("groups_done", 0)
+            rep = read_json(reports[0]) or {}
+            if done >= 2 and all(rep.get("launches", {}).get(k, 0) > 0
+                                 for k in CONSENSUS_KERNELS):
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=60)
+                break
+            time.sleep(0.02)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    killed_wall = time.time() - t0
+    at_kill = read_json(manifest)["groups_done"]
+    if proc.returncode != -signal.SIGKILL or at_kill >= groups:
+        raise SmokeFailure(f"resume: the kill did not land mid-run (exit "
+                           f"{proc.returncode}, {at_kill} of {groups} "
+                           f"groups)")
+    first = read_json(reports[0])
+    _, resumed_wall = run_processes(
+        [[sys.executable, os.path.abspath(__file__), "--cli-process",
+          reports[1], *args]], logs[1:], env)
+    require_same_outputs("resume", out, out_np)
+    rows = []
+    for k, rep in enumerate((first, read_json(reports[1]))):
+        for name in CONSENSUS_KERNELS:
+            if rep["launches"].get(name, 0) <= 0:
+                raise SmokeFailure(f"resume: session {k} did not launch "
+                                   f"{name}")
+        rows.append(dict(session=k, rc=rep["rc"],
+                         import_s=round(rep["import_s"], 3),
+                         context_s=round(rep["context_s"], 3),
+                         cli_s=round(rep["cli_s"], 3),
+                         max_memory_allocated_mb=round(
+                             rep["max_memory_allocated"] / 2 ** 20, 1),
+                         launches=rep["launches"]))
+    wall = killed_wall + resumed_wall
+    log(f"resume (a): -g {SWEEP_GROUP}, SIGKILL after {at_kill} of {groups} "
+        f"groups at {killed_wall:.3f} s, resumed in {resumed_wall:.3f} s; "
+        f"{wall:.3f} s over 2 sessions = {wall / 2:.3f} s a session "
+        f"(one cold process, uninterrupted: {cold:.3f} s); tree identical "
+        f"to numpy; sessions (the first as its report stood at the kill) "
+        f"{json.dumps(rows)}")
+
+    # (b) the consensus CLI restarting after every group
+    out = os.path.join(WORK, "out_restart")
+    shutil.rmtree(out, ignore_errors=True)
+    wall, sessions = supervised(
+        "rss restart (b)",
+        [sys.executable, "-m", "c3poa_tpu_torch.cli", "-r", reads_fq,
+         "-s", splint_fa, "-o", out, "--backend", "cuda", "-g",
+         str(RESUME_GROUP), "--rss-restart-mb", "1"], env,
+        os.path.join(WORK, "restart_consensus.log"))
+    require_same_outputs("rss restart (b)", out, out_np)
+    log(f"rss restart (b): -g {RESUME_GROUP}, {sessions} sessions in "
+        f"{wall:.3f} s = {wall / sessions:.3f} s a session, "
+        f"{(wall - cold) / (sessions - 1):.3f} s a restart over one cold "
+        f"process uninterrupted ({cold:.3f} s); tree identical to numpy; "
+        f"the last session's counters (it finds every group done) "
+        f"{json.dumps(json.load(open(os.path.join(out, 'c3poa_stats.json')))['counters'])}")
+    done = re.findall(r"after group (\d+); exiting",
+                      open(os.path.join(WORK, "restart_consensus.log")).read())
+    want = [str(g) for g in range(1, -(-N_READS // RESUME_GROUP) + 1)]
+    if done != want:
+        raise SmokeFailure(f"rss restart (b): sessions ended after groups "
+                           f"{done}, not one each of {want}")
+
+    # (c) the postprocess CLI restarting after every group
+    out = os.path.join(WORK, "post_restart")
+    shutil.rmtree(out, ignore_errors=True)
+    wall, sessions = supervised(
+        "postprocess rss restart (c)",
+        [sys.executable, "-m", "c3poa_tpu_torch.cli_postprocess",
+         "-i", os.path.join(WORK, "post_in.fasta"),
+         "-a", os.path.join(WORK, "adapters.fasta"),
+         "-x", os.path.join(WORK, "indexes.fasta"), "-o", out, "-t",
+         "--backend", "cuda", "-g", str(POST_RESUME_GROUP),
+         "--rss-restart-mb", "1"], env,
+        os.path.join(WORK, "restart_postprocess.log"))
+    if tree_bytes(out) != tree_bytes(os.path.join(WORK, "post_numpy")):
+        raise SmokeFailure("postprocess rss restart (c): the tree differs "
+                           "from the numpy backend's")
+    log(f"postprocess rss restart (c): -g {POST_RESUME_GROUP}, {sessions} "
+        f"sessions in {wall:.3f} s = {wall / sessions:.3f} s a session "
+        f"(the in-process uninterrupted run: {walls['postprocess']:.3f} "
+        f"s); tree identical to numpy")
 
 
 def phase_mesh(dev, results):
@@ -1450,6 +1666,7 @@ def main(argv=None) -> int:
     log(f"nvidia-smi: {smi}")
 
     results = {k: {} for k in KERNELS}
+    walls = {}
     t_start = time.time()
     try:
         t0 = time.time()
@@ -1475,9 +1692,10 @@ def main(argv=None) -> int:
                 (phase_adapters, (dev, results, opts.parent_adapters)),
                 (phase_probes, (dev, results)),
                 (phase_end_to_end, (results,)),
-                (phase_processes, ()),
+                (phase_processes, (walls,)),
                 (phase_host_routes, (dev,)),
-                (phase_postprocess_end_to_end, (results,)),
+                (phase_postprocess_end_to_end, (results, walls)),
+                (phase_resume, (walls,)),
                 (phase_mesh, (dev, results))):
             t0 = time.time()
             phase(*args)
