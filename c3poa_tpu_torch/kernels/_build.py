@@ -37,7 +37,7 @@ BUILD_DIR = os.path.join(
 # one library per source; never --use_fast_math (band_lo needs IEEE
 # f32 division and round-half-even, see csrc/band_lo.cuh)
 SOURCES = ("profile", "banded", "adapters", "int16_probe", "floor_probe",
-           "smooth")
+           "smooth", "peaks")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -52,6 +52,7 @@ SIGNATURES = {
     "int16_probe": {"c3t_int16_probe": [_P] * 3 + [_I] + [_P]},
     "floor_probe": {"c3t_floor_probe": [_P] * 2 + [_I] * 5 + [_P]},
     "smooth": {"c3t_smooth3": [_P] * 5 + [_I] * 3 + [_P]},
+    "peaks": {"c3t_peak_candidates": [_P] * 10 + [_I] * 3 + [_P]},
 }
 
 _LOCK = threading.Lock()

@@ -1,5 +1,6 @@
 """Fused splint locate: profile -> combo select -> smooth -> peak
-candidates (counterpart of ``c3poa_tpu/kernels/locate.py``).
+candidates (counterpart of ``c3poa_tpu/kernels/locate.py``); on the card
+the profile, the smoothing and the candidates are hand-written kernels.
 
 One call per batch of reads; only O(B) scalars and the O(B * L/tile)
 candidate slots need to leave the device.  The distance selection
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .peaks import peak_candidates_batch
+from .peaks import peak_candidates
 from .smooth import combo_rows, smooth3
 from .sw_profile import start_profile
 
@@ -47,5 +48,5 @@ def locate_device(reads: torch.Tensor, lens: torch.Tensor,
                       dim=1).values
     sm = smooth3(prof, combo, lens)                           # (B, L)
     cand_pos, cand_h, med, _height, _gated, deep, margin = \
-        peak_candidates_batch(sm, lens, tile=tile)
+        peak_candidates(sm, lens, tile=tile)
     return combo, best_score, cand_pos, cand_h, med, deep, margin

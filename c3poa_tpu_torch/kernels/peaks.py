@@ -13,15 +13,23 @@ decisions sit within the measured f32-vs-f64 error of flipping.
 
 Host half: jax-free copies of ``select_peaks_host``,
 ``margin_competitors_host`` and ``tile_for_distance``, and the guard
-constants, each pinned to its original by a test.  On the GPU sort and
-``gather`` are cheap, so the median is a sort, not the TPU's bitwise
-order-statistic search; the values are the same order statistics.
+constants, each pinned to its original by a test.  The plain version's
+median is a sort, not the TPU's bitwise order-statistic search; the values
+are the same order statistics.
+
+``peak_candidates_batch`` is the plain torch version;
+``peak_candidates_cuda`` launches the hand-written kernels
+``csrc/peaks.cu`` (a radix-select median a read, then the candidates a
+chunk of columns), which equal it bit for bit on every output;
+``peak_candidates`` dispatches on the rows' device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import _build
 
 NEG_F = float(np.float32(-3.0e38))
 
@@ -144,6 +152,53 @@ def peak_candidates_batch(smoothed: torch.Tensor, lens: torch.Tensor,
     cand_pos = torch.cat([p1, p2], dim=1)
     cand_h = torch.cat([h1, h2], dim=1)
     return cand_pos, cand_h, med, height, gated, deep, margin
+
+
+def peak_candidates_cuda(smoothed: torch.Tensor, lens: torch.Tensor,
+                         tile: int = 64):
+    """The kernels (``csrc/peaks.cu``): smoothed (B, L) float32 and lens
+    (B,) int32 in [1, L] on the card, tile a power of two <= 64 dividing
+    L; returns ``peak_candidates_batch(smoothed, lens, tile)`` bit for bit
+    (values finite, above NEG_F / 2, no -0.0: what the smoothing writes).
+    Two launches on the current stream, no host sync."""
+    if not isinstance(tile, int) or not 1 <= tile <= 64 or \
+            tile & (tile - 1):
+        raise ValueError(f"tile = {tile!r}: expected a power of two <= 64")
+    _build.require(smoothed, torch.float32, 2, "smoothed")
+    dev = smoothed.device
+    _build.require(lens, torch.int32, 1, "lens", dev)
+    B, L = smoothed.shape
+    if lens.shape[0] != B:
+        raise ValueError(f"lens {tuple(lens.shape)} disagrees with smoothed "
+                         f"{tuple(smoothed.shape)} on B")
+    if L < 1 or L % tile or L >= 1 << 30:
+        raise ValueError(f"L = {L} is not a positive multiple of tile = "
+                         f"{tile} below 2**30")
+    M = L // tile
+    cand_pos = torch.empty((B, 2 * M), dtype=torch.int32, device=dev)
+    cand_h = torch.empty((B, 2 * M), dtype=torch.float32, device=dev)
+    med, height, tol = (torch.empty(B, dtype=torch.float32, device=dev)
+                        for _ in range(3))
+    gated, deep, margin = (torch.empty(B, dtype=torch.bool, device=dev)
+                           for _ in range(3))
+    if B:
+        _build.launch("peaks", "c3t_peak_candidates", "peak_candidates_cuda",
+                      smoothed, smoothed.data_ptr(), lens.data_ptr(),
+                      cand_pos.data_ptr(), cand_h.data_ptr(), med.data_ptr(),
+                      height.data_ptr(), gated.data_ptr(), deep.data_ptr(),
+                      margin.data_ptr(), tol.data_ptr(), B, L, tile)
+    return cand_pos, cand_h, med, height, gated, deep, margin
+
+
+def peak_candidates(smoothed: torch.Tensor, lens: torch.Tensor,
+                    tile: int = 64):
+    """The peak candidates: the kernels for CUDA tensors,
+    ``peak_candidates_batch`` for CPU tensors."""
+    if smoothed.device.type == "cuda":
+        return peak_candidates_cuda(smoothed, lens, tile)
+    if smoothed.device.type == "cpu":
+        return peak_candidates_batch(smoothed, lens, tile)
+    raise ValueError(f"unsupported device {smoothed.device}")
 
 
 def margin_competitors_host(cand_pos: np.ndarray, cand_h: np.ndarray,

@@ -64,8 +64,11 @@ Besides, step 4 reads the profile kernel's row loop from its SASS (its
 instructions a cell, beside the fewest its bound counts), requires the
 smoothing kernel to equal the CPU plain version bit for bit at the locate
 shape, times it beside its plain version, its bound and three conv1d
-passes as a yardstick, times the peak candidates (torch ops) alone and
-counts one locate batch's device activities (``torch.profiler``),
+passes as a yardstick, requires the peak-candidates kernels to equal
+their plain version bit for bit on all seven outputs there, times them
+(C interface, wrapper, device time) beside the plain version's torch ops
+and their bound, requires their SASS to hold no FFMA, counts one
+locate batch's device activities (``torch.profiler``),
 measures the float32 smoothing's error against float64 at 200 and 450 bp
 splints and the peak guard's extra flags (``tools/smooth_error``, through
 the kernel), reads the int16 probe's device
@@ -81,6 +84,14 @@ pointers) into a temporary directory and times it beside the current
 kernel on the inputs of ``c3poa_tpu_torch.tools.adapters_time`` (the
 postprocess shape, the general path, a long read, small batches), in the
 order earlier, current, current, earlier.
+
+    python3 chip_smoke.py --parent-peaks DIR [--parent-peaks DIR2 ...]
+
+also builds each ``DIR/peaks.cu`` (an earlier revision of the
+peak-candidates kernels, with its ``peaks.cuh``, the same C signature
+``c3t_peak_candidates``) into a temporary directory, requires its seven
+outputs to equal the current kernels' at the locate shape, and times the
+two there in the order earlier, current, current, earlier.
 
     python3 chip_smoke.py --parent-profile DIR [--parent-profile DIR2 ...]
 
@@ -218,9 +229,12 @@ KERNELS = {
                          "tools/mosaic_floor_probe.py:29"),
     "smooth3_cuda": ("c3poa_tpu_torch/kernels/csrc/smooth.cu",
                      "c3poa_tpu/kernels/smooth.py:28"),
+    "peak_candidates_cuda": ("c3poa_tpu_torch/kernels/csrc/peaks.cu",
+                             "c3poa_tpu/kernels/peaks.py:112"),
 }
 # which run launches which kernel
-CONSENSUS_KERNELS = ("start_profile_cuda", "smooth3_cuda", "banded_fwd_cuda",
+CONSENSUS_KERNELS = ("start_profile_cuda", "smooth3_cuda",
+                     "peak_candidates_cuda", "banded_fwd_cuda",
                      "banded_walk_cuda")
 POST_KERNELS = ("adapter_hits_cuda",)
 # the floor probe's check: every mode at these S, M = 64 and a short loop
@@ -323,9 +337,12 @@ def make_dataset():
     return reads, splints
 
 
-def phase_profile(dev, reads, splints, results, parent_dirs=()):
+def phase_profile(dev, reads, splints, results, parent_dirs=(),
+                  parent_peaks=()):
     """Kernel 1 at the locate shape: 128 reads, C = 2, L = 32768; beside
-    the earlier profile kernels of ``parent_dirs``."""
+    the earlier profile kernels of ``parent_dirs``; then the rest of the
+    locate step (``smooth_peaks_row``), the peak-candidates kernels beside
+    the earlier ones of ``parent_peaks``."""
     import numpy as np
     import torch
 
@@ -405,8 +422,9 @@ def phase_profile(dev, reads, splints, results, parent_dirs=()):
     if bad:
         raise SmokeFailure(f"smooth3_cuda differs from the CPU plain "
                            f"version in {bad} elements (max {d_cpu})")
-    results["smooth3_cuda"] = dict(
-        max_abs_err=d_cpu, **smooth_peaks_row(dev, Rd, Sd, ld, want, combo))
+    smooth_row, results["peak_candidates_cuda"] = smooth_peaks_row(
+        dev, Rd, Sd, ld, want, combo, parent_peaks)
+    results["smooth3_cuda"] = dict(max_abs_err=d_cpu, **smooth_row)
 
     # the f32 error and the margin guard's flags with and without its
     # relative term (STRUCT_REL): the consensus run's 1000 reads and 200 bp
@@ -454,11 +472,41 @@ def profile_sass(cells_per_s: float) -> None:
                            f"{per_cell['max']} instructions a cell")
 
 
+def compare_earlier(src_dir: str, name: str, prepare, current, want,
+                    reps: int, sass=None) -> list:
+    """``src_dir/<name>.cu`` (an earlier revision, with its headers; the
+    current C signature of ``name``) built by nvcc into a temporary
+    directory, its SASS handed to ``sass`` when given.  ``prepare(lib)``
+    returns a launch of it (no arguments) and the tensors that launch
+    writes, each held in bits to the same one of ``want``; then it and
+    ``current`` are timed in turns, ``reps`` launches each: [(label, ms)]
+    in the order earlier, current, current, earlier."""
+    import torch
+
+    from c3poa_tpu_torch.kernels import _build
+
+    tmp = tempfile.mkdtemp(prefix=f"parent_{name}_")
+    try:
+        lib, so = build_earlier(src_dir, name, tmp)
+        if sass:
+            sass(_build.sass_of(so))
+        earlier, outs = prepare(_build.bind(lib, _build.SIGNATURES[name]))
+        earlier()
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(outs, want, strict=True)):
+            require_equal(f"earlier {name} output {i}", bits(a), bits(b))
+        return [("earlier", cuda_time_ms(earlier, reps)),
+                ("current", cuda_time_ms(current, reps)),
+                ("current", cuda_time_ms(current, reps)),
+                ("earlier", cuda_time_ms(earlier, reps))]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def compare_profiles(src_dir: str, Rd, Sd, ld, want, bound_ms) -> None:
-    """The profile kernel of ``src_dir/profile.cu`` (an earlier revision,
-    with its headers; the same C interface) built by nvcc into a
-    temporary directory, held to the current kernel's output and timed
-    beside it on the same inputs: earlier, current, current, earlier."""
+    """The profile kernel of ``src_dir/profile.cu`` beside the current
+    one at the locate shape (``compare_earlier``), its row loop's SASS by
+    pipe logged."""
     import torch
 
     from c3poa_tpu_torch.kernels import _build
@@ -466,53 +514,51 @@ def compare_profiles(src_dir: str, Rd, Sd, ld, want, bound_ms) -> None:
                                                     tile_overlap)
     from c3poa_tpu_torch.tools import banded_sass
 
-    tmp = tempfile.mkdtemp(prefix="parent_profile_")
-    try:
-        lib, so = build_earlier(src_dir, "profile", tmp)
-        res = banded_sass.row_pipes(_build.sass_of(so), "profile_kernel", 1)
+    (B, L), (C, m) = Rd.shape, Sd.shape
+
+    def row_loop(funcs):
+        res = banded_sass.row_pipes(funcs, "profile_kernel", 1)
         log(f"  earlier profile row loop SASS (a row and thread): "
             f"{json.dumps({k: res[k] for k in ('min', 'max')})}; opcodes "
             f"{json.dumps(res['opcodes'])}")
-        lib = _build.bind(lib, _build.SIGNATURES["profile"])
-        (B, L), (C, m) = Rd.shape, Sd.shape
+
+    def prepare(lib):
+        out = torch.empty((B, C, L), dtype=torch.int32, device=Rd.device)
 
         def earlier():
-            out = torch.empty((B, C, L), dtype=torch.int32, device=Rd.device)
             _build.launch(lib, "c3t_start_profile", "earlier_profile", Rd,
                           Rd.data_ptr(), ld.data_ptr(), Sd.data_ptr(),
                           out.data_ptr(), B, L, C, m, tile_overlap(m), 1,
                           -2, 2)
-            return out
+        return earlier, (out,)
 
-        require_equal("earlier profile", earlier(), want)
-        current = lambda: start_profile_cuda(Rd, Sd, ld)  # noqa: E731
-        times = [("earlier", cuda_time_ms(earlier, 10)),
-                 ("current", cuda_time_ms(current, 10)),
-                 ("current", cuda_time_ms(current, 10)),
-                 ("earlier", cuda_time_ms(earlier, 10))]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    times = compare_earlier(
+        src_dir, "profile", prepare,
+        lambda: start_profile_cuda(Rd, Sd, ld), (want,), 10, row_loop)
     log(f"profile, earlier ({src_dir}) and current kernel, in turns: "
         f"{json.dumps(times)}; bound {bound_ms:.4f} ms")
 
 
-def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo):
+def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo, parent_peaks=()):
     """The locate step after the combo choice (``kernels/locate.py``),
     at the locate shape: the smoothing kernel through its wrapper,
     through its C interface (a run of launches the host cannot hold
     back) and by its device time (``torch.profiler``); its plain version
     (the gather, the float copy and ``smooth3_batch``); three conv1d
     passes of the same taps as a yardstick (not bit-equal: no per-read
-    edge padding); the peak candidates alone; the step with the kernel
-    and with the plain version; and one locate batch's device activities.
-    Returns the kernel's row of the kernels line (ms through the C
+    edge padding); the peak-candidates kernels held bit for bit to their
+    plain version on the card and on the CPU, timed the same three ways
+    beside it (``peaks_row``); the step with the kernels and with the
+    plain versions; and one locate batch's device activities.  Returns
+    the two kernels' rows of the kernels line (ms through the C
     interface)."""
     import torch
 
     from c3poa_tpu_torch.kernels import _build
     from c3poa_tpu_torch.kernels.locate import locate_device
     from c3poa_tpu_torch.kernels.peaks import (masked_median,
-                                               peak_candidates_batch)
+                                               peak_candidates_batch,
+                                               peak_candidates_cuda)
     from c3poa_tpu_torch.kernels.smooth import (combo_rows, smooth3_batch,
                                                 smooth3_cuda, taps)
 
@@ -538,8 +584,8 @@ def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo):
     plain_ms = cuda_time_ms(plain, 3)
     ms_peaks = cuda_time_ms(lambda: peak_candidates_batch(sm, ld, tile=64),
                             5)
-    ms_step = cuda_time_ms(lambda: peak_candidates_batch(
-        smooth3_cuda(prof, combo, ld), ld, tile=64), 5)
+    ms_step = cuda_time_ms(lambda: peak_candidates_cuda(
+        smooth3_cuda(prof, combo, ld), ld, 64), 20)
     ms_step_plain = cuda_time_ms(lambda: peak_candidates_batch(
         plain(), ld, tile=64), 3)
     w = torch.tensor(taps(), device=dev).view(1, 1, 41)
@@ -555,8 +601,8 @@ def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo):
         ms_conv = cuda_time_ms(conv3, 20)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    step = device_activities(lambda: peak_candidates_batch(
-        smooth3_cuda(prof, combo, ld), ld, tile=64))
+    step = device_activities(lambda: peak_candidates_cuda(
+        smooth3_cuda(prof, combo, ld), ld, 64))
     peaks = device_activities(lambda: peak_candidates_batch(sm, ld, tile=64))
     median = device_activities(lambda: masked_median(sm, ld))
     batch = device_activities(lambda: locate_device(Rd, ld, Sd, tile=64))
@@ -570,26 +616,21 @@ def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo):
                      LANE_OPS_PER_S)
     first = bound(B * L * 4 + nbytes(*cand),
                   SMOOTH_FIRST_OPS_PER_ELEMENT * B * L, F32_OPS_PER_S)
-    # the peak candidates' bound: one read of the smoothed rows and the
-    # lengths, the outputs written once, over the memory rate
-    peaks_bd = bound(nbytes(sm, ld, *cand), 0)
     row = dict(ms=ms_direct, ms_wrapper=ms_wrapper, device_ms=device_ms,
-               plain_ms=plain_ms, library_ms=ms_conv, ms_peaks=ms_peaks,
-               ms_step=ms_step, ms_step_plain=ms_step_plain,
-               peaks_bound_ms=peaks_bd["bound_ms"],
-               peaks_bound_by=peaks_bd["bound_by"],
+               plain_ms=plain_ms, library_ms=ms_conv, ms_step=ms_step,
+               ms_step_plain=ms_step_plain,
                step_device_activities=len(step),
                step_device_us=sum(a[1] for a in step),
-               peaks_device_activities=len(peaks),
-               peaks_device_us=sum(a[1] for a in peaks),
-               median_device_us=sum(a[1] for a in median),
+               plain_peaks_device_activities=len(peaks),
+               plain_peaks_device_us=sum(a[1] for a in peaks),
+               plain_median_device_us=sum(a[1] for a in median),
                locate_batch_device_activities=len(batch),
                locate_batch_device_us=sum(a[1] for a in batch),
                columns=cols, **bd)
     log(f"smoothing kernel SASS: {json.dumps(smooth_sass())} (no FFMA; "
         f"a pass's group of 8 columns is 328 FMUL and 328 FADD)")
-    log(f"smoothing kernel and peaks: B={B} L={L} ({cols} read columns): "
-        f"{json.dumps(row)}; bound {bd['bound_ms']:.4f} ms "
+    log(f"smoothing kernel and the step: B={B} L={L} ({cols} read "
+        f"columns): {json.dumps(row)}; bound {bd['bound_ms']:.4f} ms "
         f"({bd['bound_by']}: {OPS_PER_CELL['smooth3_cuda']} FP32 "
         f"instructions a read column on 128 lanes an SM; the kernel at "
         f"{bd['bound_ms'] / ms_direct:.1%} of it), {over_all['bound_ms']:.4f}"
@@ -599,8 +640,108 @@ def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo):
         f"{LANE_OPS_PER_S * ms_direct / 1e3 / cols:.1f} instructions a read "
         f"column at 4 a clock an SM; the kernel "
         f"{ms_conv / ms_direct:.2f}x faster than three conv1d passes")
-    return {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by")}
+    return ({k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")},
+            peaks_row(sm, ld, cand, ms_peaks, parent_peaks))
+
+
+def bits(t):
+    """A tensor to compare bit for bit: float32 as its int32 bits."""
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+PEAK_OUTPUTS = ("cand_pos", "cand_h", "med", "height", "gated", "deep",
+                "margin")
+
+
+def peaks_row(sm, ld, want, plain_ms, parent_dirs=()):
+    """The peak-candidates kernels at the locate shape (tile 64): every
+    output equal in bits to the plain version on the card (``want``) and
+    on the CPU; timed through the wrapper, through the C interface and by
+    device time (both kernels, ``torch.profiler``) beside the plain
+    version (``plain_ms``) and the bound; their SASS free of FFMA; the
+    kernels of each of ``parent_dirs`` (earlier revisions) held to the
+    current and timed in turns with it (``compare_earlier``).  Returns the
+    kernels line's row."""
+    import torch
+
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.kernels.peaks import (peak_candidates_batch,
+                                               peak_candidates_cuda)
+
+    (B, L), tile = sm.shape, 64
+    got = peak_candidates_cuda(sm, ld, tile)
+    torch.cuda.synchronize()
+    cpu = peak_candidates_batch(sm.cpu(), ld.cpu(), tile=tile)
+    err = 0
+    for name, a, b, c in zip(PEAK_OUTPUTS, got, want, cpu, strict=True):
+        err = max(err,
+                  require_equal(f"peak_candidates_cuda {name}", bits(a),
+                                bits(b)),
+                  require_equal(f"peak_candidates_cuda {name} (CPU plain)",
+                                bits(a.cpu()), bits(c)))
+    outs = [torch.empty_like(t) for t in got]
+    tol = torch.empty(B, dtype=torch.float32, device=sm.device)
+    args = (sm.data_ptr(), ld.data_ptr(), *(t.data_ptr() for t in outs),
+            tol.data_ptr(), B, L, tile)
+
+    def direct():
+        _build.launch("peaks", "c3t_peak_candidates",
+                      "peak_candidates_timing", sm, *args)
+
+    ms_wrapper = cuda_time_ms(lambda: peak_candidates_cuda(sm, ld, tile), 50)
+    ms_direct = cuda_time_ms(direct, 100)
+    acts = device_activities(lambda: [direct() for _ in range(10)])
+    stats_us = [t for name, t in acts if "pk_stats_kernel" in name]
+    cand_us = [t for name, t in acts if "pk_cand_kernel" in name]
+    device_ms = (sum(stats_us) / len(stats_us) + sum(cand_us) / len(cand_us)
+                 ) / 1e3 if stats_us and cand_us else None
+    bd = bound(nbytes(sm, ld, *want), 0)
+    sass = peaks_sass()
+    row = dict(ms=ms_direct, ms_wrapper=ms_wrapper, device_ms=device_ms,
+               stats_device_us=(sum(stats_us) / len(stats_us)
+                                if stats_us else None),
+               cand_device_us=(sum(cand_us) / len(cand_us)
+                               if cand_us else None),
+               plain_ms=plain_ms, **bd)
+    log(f"peak_candidates_cuda: B={B} L={L} tile={tile}: all seven outputs "
+        f"equal in bits to the plain version (card and CPU); "
+        f"{json.dumps(row)}; the kernels at {bd['bound_ms'] / ms_direct:.1%}"
+        f" of the bound ({bd['bound_by']}); SASS instructions "
+        f"{json.dumps(sass)} (no FFMA)")
+
+    def prepare(lib):
+        # its own outputs in place of args[2:9], the scratch and ints kept
+        outs = [torch.empty_like(t) for t in got]
+        run_args = (*args[:2], *(t.data_ptr() for t in outs), *args[9:])
+        return (lambda: _build.launch(lib, "c3t_peak_candidates",
+                                      "peak_candidates_timing", sm,
+                                      *run_args)), outs
+
+    for src_dir in parent_dirs:
+        times = compare_earlier(src_dir, "peaks", prepare, direct, got, 100)
+        log(f"peak_candidates_cuda beside {src_dir}/peaks.cu, in turns "
+            f"(ms): {json.dumps(times)}")
+    return dict(max_abs_err=err, ms=ms_direct, plain_ms=plain_ms,
+                bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                library_ms=None)
+
+
+def peaks_sass() -> dict:
+    """The two peak-candidates kernels' SASS instruction counts; fails
+    on an FFMA (a fused gate or margin would change the bits)."""
+    from c3poa_tpu_torch.kernels import _build
+    funcs = _build.sass("peaks")
+    out = {}
+    for kernel in ("pk_stats_kernel", "pk_cand_kernel"):
+        insns = funcs[next(k for k in funcs if kernel in k)]
+        fused = sum(1 for _a, i in insns
+                    if _build.sass_mnemonic(i).startswith("FFMA"))
+        if fused:
+            raise SmokeFailure(f"{kernel}'s SASS holds {fused} FFMA")
+        out[kernel] = len(insns)
+    return out
 
 
 def smooth_sass() -> dict:
@@ -1635,6 +1776,10 @@ def main(argv=None) -> int:
                     default=[],
                     help="an earlier profile.cu (with its headers) to time "
                          "beside the current kernel (may be repeated)")
+    ap.add_argument("--parent-peaks", metavar="DIR", action="append",
+                    default=[],
+                    help="an earlier peaks.cu (with its headers) to time "
+                         "beside the current kernels (may be repeated)")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -1687,7 +1832,7 @@ def main(argv=None) -> int:
         log(f"dataset: {len(reads)} reads in {time.time() - t0:.3f} s")
         for phase, args in (
                 (phase_profile, (dev, reads, splints, results,
-                                 opts.parent_profile)),
+                                 opts.parent_profile, opts.parent_peaks)),
                 (phase_banded, (dev, results)),
                 (phase_adapters, (dev, results, opts.parent_adapters)),
                 (phase_probes, (dev, results)),

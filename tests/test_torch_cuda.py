@@ -5,8 +5,10 @@ dummy and empty pairs, band shifts beyond SMAX, long splints, tile seams,
 the adapter hits' ties, dimers, N codes, short and empty reads, combos
 longer than one pass and a read of the widest payload, the host routes
 for long targets and long splints, the two probe kernels at the int16 extremes, every mode at the smallest and
-largest M they are built for, and int32 overflow, and the smoothing
-kernel bit for bit at every edge length of a read and its tiles.
+largest M they are built for, and int32 overflow, the smoothing
+kernel bit for bit at every edge length of a read and its tiles, and the
+peak-candidates kernels bit for bit on all seven outputs at every tile
+width the locate step takes, on the edge rows of ``torch_peaks_cases``.
 
 Needs a CUDA card and nvcc; skips without them.  This file imports no
 jax, so it runs on a machine without it:
@@ -26,6 +28,7 @@ from c3poa_tpu_torch.utils import encode, revcomp_encoded
 from torch_adapter_cases import (ADAPTER_SETS, adapter_matrix, batch, combos,
                                  edge_reads)
 from torch_banded_cases import ragged_pairs
+from torch_peaks_cases import edge_rows, random_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -581,3 +584,102 @@ def test_smooth_wrapper_rejects_what_it_cannot_take(dev):
         smooth3_cuda(prof[:, :, :20].contiguous(), combo, lens)
     with pytest.raises(ValueError, match="CUDA"):
         smooth3_cuda(prof.cpu(), combo.cpu(), lens.cpu())
+
+
+PEAK_OUTPUTS = ("cand_pos", "cand_h", "med", "height", "gated", "deep",
+                "margin")
+
+
+def _peaks_same_bits(got, want, what):
+    for name, a, b in zip(PEAK_OUTPUTS, got, want):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        _same(a, b, f"{what}: {name}")
+
+
+def _peaks_plain_cpu(sm, lens, tile):
+    from c3poa_tpu_torch.kernels.peaks import peak_candidates_batch
+    return peak_candidates_batch(torch.from_numpy(sm),
+                                 torch.from_numpy(lens), tile=tile)
+
+
+@pytest.mark.parametrize("tile", [1, 16, 64])
+@pytest.mark.parametrize("L", [64, 4096, 32768, 131072])
+def test_peaks_kernel_matches_plain_bitwise(dev, L, tile):
+    """The edge rows (plateaus across tiles and chunks and one as long as
+    the read, ties, survivors, values an ulp around the cuts and margins,
+    zeros, n = 1, 2, L - 1, L) on the card against the CPU plain version,
+    all seven outputs bit for bit, outputs allocated over garbage."""
+    from c3poa_tpu_torch.kernels.peaks import peak_candidates_cuda
+    sm, lens = edge_rows(L, seed=L + tile)
+    _dirty_allocator(dev, sm.nbytes)
+    got = peak_candidates_cuda(torch.from_numpy(sm).to(dev),
+                               torch.from_numpy(lens).to(dev), tile)
+    torch.cuda.synchronize()
+    _peaks_same_bits(got, _peaks_plain_cpu(sm, lens, tile),
+                     f"L={L} tile={tile}")
+
+
+def test_peaks_kernel_many_reads(dev):
+    """300 random reads of random lengths: more blocks than the card
+    runs at once, every read's flags set by many blocks."""
+    from c3poa_tpu_torch.kernels.peaks import peak_candidates_cuda
+    rng = np.random.default_rng(13)
+    L = 8192
+    sm = random_rows(rng, 300, L)
+    lens = rng.integers(1, L + 1, 300).astype(np.int32)
+    for tile in (16, 64):
+        got = peak_candidates_cuda(torch.from_numpy(sm).to(dev),
+                                   torch.from_numpy(lens).to(dev), tile)
+        _peaks_same_bits(got, _peaks_plain_cpu(sm, lens, tile),
+                         f"tile={tile}")
+
+
+def test_locate_device_on_card_launches_peak_kernel(dev):
+    """``locate_device`` on the card goes through the peak-candidates
+    kernels once a batch, and its outputs equal the CPU route's."""
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.kernels.locate import locate_device
+    from c3poa_tpu_torch.state import splint_array
+    reads, splints = sim.make_dataset(n_reads=6, seed=9,
+                                      insert_len=(500, 900), copies=(3, 6))
+    codes = encode(next(iter(splints.values())))
+    S = splint_array([Combo("s", "+", codes, len(codes)),
+                      Combo("s", "-", revcomp_encoded(codes), len(codes))])
+    enc = [encode(r.seq) for r in reads]
+    L = -(-max(len(c) for c in enc) // 64) * 64
+    R = np.full((len(enc), L), 4, np.int8)
+    lens = np.array([len(c) for c in enc], np.int32)
+    for b, c in enumerate(enc):
+        R[b, :len(c)] = c
+    args = [torch.from_numpy(a) for a in (R, lens, S)]
+    for tile in (16, 64):
+        _build.reset_counts()
+        got = locate_device(*(a.to(dev) for a in args), tile=tile)
+        assert _build.launch_counts().get("peak_candidates_cuda", 0) == 1
+        for name, a, b in zip(("combo", "score", "cand_pos", "cand_h",
+                               "med", "deep", "margin"), got,
+                              locate_device(*args, tile=tile)):
+            _same(a, b, f"tile={tile}: {name}")
+
+
+def test_peaks_wrapper_rejects_what_it_cannot_take(dev):
+    from c3poa_tpu_torch.kernels.peaks import (peak_candidates,
+                                               peak_candidates_cuda)
+    sm = torch.zeros((2, 128), dtype=torch.float32, device=dev)
+    lens = torch.full((2,), 128, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        peak_candidates_cuda(sm.double(), lens, 64)
+    with pytest.raises(ValueError, match="int32"):
+        peak_candidates(sm, lens.long(), 64)
+    with pytest.raises(ValueError, match="disagrees"):
+        peak_candidates_cuda(sm, lens[:1], 64)
+    with pytest.raises(ValueError, match="multiple of tile"):
+        peak_candidates_cuda(sm[:, :96].contiguous(), lens, 64)
+    with pytest.raises(ValueError, match="power of two"):
+        peak_candidates_cuda(sm, lens, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        peak_candidates_cuda(sm[:, ::2], lens, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        peak_candidates_cuda(sm.cpu(), lens.cpu(), 64)
