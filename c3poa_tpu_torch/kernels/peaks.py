@@ -18,10 +18,11 @@ median is a sort, not the TPU's bitwise order-statistic search; the values
 are the same order statistics.
 
 ``peak_candidates_batch`` is the plain torch version;
-``peak_candidates_cuda`` launches the hand-written kernels
-``csrc/peaks.cu`` (a radix-select median a read, then the candidates a
-chunk of columns), which equal it bit for bit on every output;
-``peak_candidates`` dispatches on the rows' device.
+``peak_candidates_cuda`` launches the hand-written kernel
+``csrc/peaks.cu`` (a cluster of CTAs a read, the row held in their shared
+memory: a radix-select median over the cluster, then the candidates),
+which equals it bit for bit on every output; ``peak_candidates``
+dispatches on the rows' device.
 """
 
 from __future__ import annotations
@@ -46,6 +47,11 @@ STRUCT_ATOL = 2e-4
 # tools/smooth_error.py measures it); 2.8x that.  The port's own constant:
 # c3poa_tpu keeps the absolute margin alone.
 STRUCT_REL = 2e-6
+
+# the widest row the kernel takes (csrc/peaks.cuh: PK_MAX_L, pinned by a
+# test): a cluster of at most 8 CTAs a read, each holding at most 32768
+# columns of its row
+MAX_L = 8 * 32768
 
 
 def _pow2_at_most(n: int, lo: int = 1) -> int:
@@ -156,11 +162,15 @@ def peak_candidates_batch(smoothed: torch.Tensor, lens: torch.Tensor,
 
 def peak_candidates_cuda(smoothed: torch.Tensor, lens: torch.Tensor,
                          tile: int = 64):
-    """The kernels (``csrc/peaks.cu``): smoothed (B, L) float32 and lens
+    """The kernel (``csrc/peaks.cu``): smoothed (B, L) float32 and lens
     (B,) int32 in [1, L] on the card, tile a power of two <= 64 dividing
-    L; returns ``peak_candidates_batch(smoothed, lens, tile)`` bit for bit
-    (values finite, above NEG_F / 2, no -0.0: what the smoothing writes).
-    Two launches on the current stream, no host sync."""
+    L, L <= MAX_L; returns ``peak_candidates_batch(smoothed, lens, tile)``
+    bit for bit (values finite, above NEG_F / 2, no -0.0: what the
+    smoothing writes).  One launch on the current stream, a cluster of
+    CTAs a read (the kernel picks their number from B, L and the card's
+    SMs), no host sync; the seven outputs are views of one allocation
+    (measured no faster on the host than eight ``torch.empty``; kept for
+    the one block it asks of the allocator)."""
     if not isinstance(tile, int) or not 1 <= tile <= 64 or \
             tile & (tile - 1):
         raise ValueError(f"tile = {tile!r}: expected a power of two <= 64")
@@ -171,16 +181,21 @@ def peak_candidates_cuda(smoothed: torch.Tensor, lens: torch.Tensor,
     if lens.shape[0] != B:
         raise ValueError(f"lens {tuple(lens.shape)} disagrees with smoothed "
                          f"{tuple(smoothed.shape)} on B")
-    if L < 1 or L % tile or L >= 1 << 30:
+    if L < 1 or L % tile:
         raise ValueError(f"L = {L} is not a positive multiple of tile = "
-                         f"{tile} below 2**30")
-    M = L // tile
-    cand_pos = torch.empty((B, 2 * M), dtype=torch.int32, device=dev)
-    cand_h = torch.empty((B, 2 * M), dtype=torch.float32, device=dev)
-    med, height, tol = (torch.empty(B, dtype=torch.float32, device=dev)
-                        for _ in range(3))
-    gated, deep, margin = (torch.empty(B, dtype=torch.bool, device=dev)
-                           for _ in range(3))
+                         f"{tile}")
+    if L > MAX_L:
+        raise ValueError(f"L = {L} is above the peak-candidates kernel's "
+                         f"limit of {MAX_L} columns")
+    # one allocation: the int32 and float32 outputs, then the bytes
+    M2 = 2 * (L // tile)
+    pos_b, h_b, f_b, flag_b = torch.empty(
+        8 * B * M2 + 15 * B, dtype=torch.uint8, device=dev).split(
+            (4 * B * M2, 4 * B * M2, 12 * B, 3 * B))
+    cand_pos = pos_b.view(torch.int32).view(B, M2)
+    cand_h = h_b.view(torch.float32).view(B, M2)
+    med, height, tol = f_b.view(torch.float32).view(3, B)
+    gated, deep, margin = flag_b.view(torch.bool).view(3, B)
     if B:
         _build.launch("peaks", "c3t_peak_candidates", "peak_candidates_cuda",
                       smoothed, smoothed.data_ptr(), lens.data_ptr(),
@@ -192,7 +207,7 @@ def peak_candidates_cuda(smoothed: torch.Tensor, lens: torch.Tensor,
 
 def peak_candidates(smoothed: torch.Tensor, lens: torch.Tensor,
                     tile: int = 64):
-    """The peak candidates: the kernels for CUDA tensors,
+    """The peak candidates: the kernel for CUDA tensors,
     ``peak_candidates_batch`` for CPU tensors."""
     if smoothed.device.type == "cuda":
         return peak_candidates_cuda(smoothed, lens, tile)

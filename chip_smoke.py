@@ -64,11 +64,14 @@ Besides, step 4 reads the profile kernel's row loop from its SASS (its
 instructions a cell, beside the fewest its bound counts), requires the
 smoothing kernel to equal the CPU plain version bit for bit at the locate
 shape, times it beside its plain version, its bound and three conv1d
-passes as a yardstick, requires the peak-candidates kernels to equal
-their plain version bit for bit on all seven outputs there, times them
-(C interface, wrapper, device time) beside the plain version's torch ops
-and their bound, requires their SASS to hold no FFMA, counts one
-locate batch's device activities (``torch.profiler``),
+passes as a yardstick, requires the peak-candidates kernel to equal its
+plain version bit for bit on all seven outputs there, times it (C
+interface, wrapper, device time) beside the plain version's torch ops and
+its bound, prints its cluster (ranks, share, shared memory a CTA),
+registers and spills, holds it to the plain version and times it at 16,
+64 and 512 reads too (the cluster the kernel picks at each), requires its
+SASS to hold no FFMA, counts one
+locate batch's device activities (``torch.profiler``; 10 expected),
 measures the float32 smoothing's error against float64 at 200 and 450 bp
 splints and the peak guard's extra flags (``tools/smooth_error``, through
 the kernel), reads the int16 probe's device
@@ -89,9 +92,12 @@ order earlier, current, current, earlier.
 
 also builds each ``DIR/peaks.cu`` (an earlier revision of the
 peak-candidates kernels, with its ``peaks.cuh``, the same C signature
-``c3t_peak_candidates``) into a temporary directory, requires its seven
-outputs to equal the current kernels' at the locate shape, and times the
-two there in the order earlier, current, current, earlier.
+``c3t_peak_candidates``; the two-kernel design of commit 9091467:
+``git show 9091467:c3poa_tpu_torch/kernels/csrc/peaks.cu`` and
+``peaks.cuh`` into a git-ignored directory) into a temporary
+directory, requires its seven outputs to equal the current kernel's at
+the locate shape (and at 16, 64 and 512 reads), and times the two there
+in the order earlier, current, current, earlier.
 
     python3 chip_smoke.py --parent-profile DIR [--parent-profile DIR2 ...]
 
@@ -168,10 +174,17 @@ F32_OPS_PER_S = 67e12
 SM_LANE_OPS_PER_S = 4 * 32 * 1.98e9
 # the same on all 132 SMs
 LANE_OPS_PER_S = 132 * SM_LANE_OPS_PER_S
-# integer operations a DP cell (or walk step) needs, counted from the
-# recurrences: banded forward —
-# substitution 2, E 3 and its flag 1, D 1, Ht 1, F prefix 3 and its flag
-# 3, H 1, move source 3, nibble 2; walk — nibble decode 2, state and
+# integer operations a DP cell (or walk step) needs: banded forward —
+# the fewest Hopper instructions a cell, over 128 lanes an SM, in the form
+# csrc/banded.cuh keeps (bnd_row_open, bnd_row_gap, bnd_row_moves): the
+# row's scores (one PRMT for 4 cells: 0.25), E (IADD for Ep - e, then
+# VIADDMNMX), E's extend test (IADD3), D (IDP), Ht (IMNMX), a (IADD), the
+# lane's running max of a (IMNMX), F' (VIADDMNMX), H (VIADDMNMX), a - F'
+# (IADD), F's extend test (IADD), D - H and its XOR (IADD, LOP3), four
+# pushes of the nibble (SHF): 17.25 a cell, 14.25 for a lane's first
+# column (no running max, no F' and no extend test from inside the lane),
+# so 16.5 at 4 columns a lane (W = 128); the shuffles, loads and stores
+# around the row are not counted; walk — nibble decode 2, state and
 # source 4, i/j 2; int16 probe — max, roll, select and add per column;
 # floor probe and adapters — the fewest Hopper instructions, over 128
 # lanes an SM (the floor probe issues them at that rate).  Floor probe, per
@@ -196,10 +209,14 @@ LANE_OPS_PER_S = 132 * SM_LANE_OPS_PER_S
 # symmetric-tap shortcut), so these are 246 FP32 instructions on 128
 # lanes an SM, not 123 FMAs at the data sheet's 67 TFLOP/s; the edge pads
 # (40 a pass a read) are not counted
-OPS_PER_CELL = {"start_profile_cuda": 5.5, "banded_fwd_cuda": 20,
+OPS_PER_CELL = {"start_profile_cuda": 5.5, "banded_fwd_cuda": 16.5,
                 "banded_walk_cuda": 8, "adapter_hits_cuda": 8,
                 "int16_probe_cuda": 4, "floor_probe_cuda": 2,
                 "smooth3_cuda": 246}
+# the forward's first count, printed beside the bound: substitution 2, E 3
+# and its flag 1, D 1, Ht 1, F prefix 3 and its flag 3, H 1, move source
+# 3, nibble 2, from the recurrence, on the 64-lane ALU
+FORWARD_RECURRENCE_OPS_PER_CELL = 20
 # the adapter kernel's first count, printed beside the bound: a prefix
 # scan of the in-row run (run shift, join and unshift 5 and 16 more a
 # cell) on the 64-lane ALU
@@ -232,6 +249,10 @@ KERNELS = {
     "peak_candidates_cuda": ("c3poa_tpu_torch/kernels/csrc/peaks.cu",
                              "c3poa_tpu/kernels/peaks.py:112"),
 }
+# the device activities of one locate batch at the locate shape: the
+# profile, smoothing and peak-candidates kernels and 7 torch ops of the
+# combo choice
+LOCATE_BATCH_ACTIVITIES = 10
 # which run launches which kernel
 CONSENSUS_KERNELS = ("start_profile_cuda", "smooth3_cuda",
                      "peak_candidates_cuda", "banded_fwd_cuda",
@@ -341,7 +362,7 @@ def phase_profile(dev, reads, splints, results, parent_dirs=(),
                   parent_peaks=()):
     """Kernel 1 at the locate shape: 128 reads, C = 2, L = 32768; beside
     the earlier profile kernels of ``parent_dirs``; then the rest of the
-    locate step (``smooth_peaks_row``), the peak-candidates kernels beside
+    locate step (``smooth_peaks_row``), the peak-candidates kernel beside
     the earlier ones of ``parent_peaks``."""
     import numpy as np
     import torch
@@ -546,12 +567,12 @@ def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo, parent_peaks=()):
     back) and by its device time (``torch.profiler``); its plain version
     (the gather, the float copy and ``smooth3_batch``); three conv1d
     passes of the same taps as a yardstick (not bit-equal: no per-read
-    edge padding); the peak-candidates kernels held bit for bit to their
+    edge padding); the peak-candidates kernel held bit for bit to its
     plain version on the card and on the CPU, timed the same three ways
     beside it (``peaks_row``); the step with the kernels and with the
-    plain versions; and one locate batch's device activities.  Returns
-    the two kernels' rows of the kernels line (ms through the C
-    interface)."""
+    plain versions; and one locate batch's device activities (expected
+    ``LOCATE_BATCH_ACTIVITIES``).  Returns the two kernels' rows of the
+    kernels line (ms through the C interface)."""
     import torch
 
     from c3poa_tpu_torch.kernels import _build
@@ -640,6 +661,15 @@ def smooth_peaks_row(dev, Rd, Sd, ld, prof, combo, parent_peaks=()):
         f"{LANE_OPS_PER_S * ms_direct / 1e3 / cols:.1f} instructions a read "
         f"column at 4 a clock an SM; the kernel "
         f"{ms_conv / ms_direct:.2f}x faster than three conv1d passes")
+    # a locate batch: the profile, smoothing and peak-candidates kernels
+    # (one launch each) and the combo choice's torch ops; the profiler has
+    # been seen to miss an activity, so a count off 10 is printed, not
+    # failed
+    log(f"locate batch: {len(batch)} device activities (expected "
+        f"{LOCATE_BATCH_ACTIVITIES}), {sum(a[1] for a in batch)} us: "
+        f"{json.dumps([name for name, _t in batch])}"
+        + ("" if len(batch) == LOCATE_BATCH_ACTIVITIES else
+           " -- NOT the expected count"))
     return ({k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                  "bound_by")},
             peaks_row(sm, ld, cand, ms_peaks, parent_peaks))
@@ -653,17 +683,49 @@ def bits(t):
 
 PEAK_OUTPUTS = ("cand_pos", "cand_h", "med", "height", "gated", "deep",
                 "margin")
+# the peak candidates also at these batch sizes (a locate launch takes up
+# to 512 reads; its last batch of a run may hold a few)
+PEAK_SWEEP_B = (16, 64, 512)
+# the peak-candidates kernel's cluster limits (csrc/peaks.cuh: PK_MAX_RANKS,
+# PK_MAX_SHARE, PK_SHARE_ALIGN, PK_BINS)
+PK_MAX_RANKS, PK_MAX_SHARE, PK_SHARE_ALIGN, PK_BINS = 8, 32768, 4096, 256
+
+
+def peaks_cluster(B: int, L: int, sms: int) -> dict:
+    """The cluster the peak-candidates kernel launches for B reads of L
+    columns on a card of ``sms`` SMs, as csrc/peaks.cuh picks it
+    (pk_default_ranks, pk_share_width, pk_smem_bytes; a test pins this
+    copy to the header): ranks a read, share (columns a CTA) and dynamic
+    shared memory a CTA in bytes."""
+    def share(R):
+        w = PK_SHARE_ALIGN
+        while w < -(-L // R):
+            w *= 2
+        return w
+
+    r = 1
+    while r < PK_MAX_RANKS and B * r * 2 <= sms:
+        r *= 2
+    R = -(-L // share(max(r, -(-L // PK_MAX_SHARE))))
+    S = share(R)
+    # the keys, the histogram's 32 lane copies, two passes' inboxes, the
+    # merged histogram, 4 scalars a rank, 3 a warp, the two halo keys
+    words = S + 32 * PK_BINS + 2 * R * PK_BINS + PK_BINS + 4 * R + 3 * 16 + 2
+    return dict(ranks=R, share=S, smem_bytes=4 * words)
 
 
 def peaks_row(sm, ld, want, plain_ms, parent_dirs=()):
-    """The peak-candidates kernels at the locate shape (tile 64): every
+    """The peak-candidates kernel at the locate shape (tile 64): every
     output equal in bits to the plain version on the card (``want``) and
     on the CPU; timed through the wrapper, through the C interface and by
-    device time (both kernels, ``torch.profiler``) beside the plain
-    version (``plain_ms``) and the bound; their SASS free of FFMA; the
-    kernels of each of ``parent_dirs`` (earlier revisions) held to the
-    current and timed in turns with it (``compare_earlier``).  Returns the
-    kernels line's row."""
+    device time (``torch.profiler``) beside the plain version
+    (``plain_ms``) and the bound; its cluster (``peaks_cluster``),
+    registers and spills, and SASS free of FFMA; the kernels of each of
+    ``parent_dirs`` (earlier revisions, the same C entry point) held to
+    the current and timed in turns with it (``compare_earlier``); then the
+    same at the batch sizes of ``PEAK_SWEEP_B`` (these rows cut or
+    repeated), each held to the plain version.  Returns the kernels
+    line's row."""
     import torch
 
     from c3poa_tpu_torch.kernels import _build
@@ -671,6 +733,7 @@ def peaks_row(sm, ld, want, plain_ms, parent_dirs=()):
                                                peak_candidates_cuda)
 
     (B, L), tile = sm.shape, 64
+    sms = torch.cuda.get_device_properties(sm.device).multi_processor_count
     got = peak_candidates_cuda(sm, ld, tile)
     torch.cuda.synchronize()
     cpu = peak_candidates_batch(sm.cpu(), ld.cpu(), tile=tile)
@@ -693,48 +756,76 @@ def peaks_row(sm, ld, want, plain_ms, parent_dirs=()):
     ms_wrapper = cuda_time_ms(lambda: peak_candidates_cuda(sm, ld, tile), 50)
     ms_direct = cuda_time_ms(direct, 100)
     acts = device_activities(lambda: [direct() for _ in range(10)])
-    stats_us = [t for name, t in acts if "pk_stats_kernel" in name]
-    cand_us = [t for name, t in acts if "pk_cand_kernel" in name]
-    device_ms = (sum(stats_us) / len(stats_us) + sum(cand_us) / len(cand_us)
-                 ) / 1e3 if stats_us and cand_us else None
+    us = [t for name, t in acts if "pk_kernel" in name]
+    device_ms = sum(us) / len(us) / 1e3 if us else None
+
+    for line in _build.build_logs.get("peaks", "").splitlines():
+        if "registers" in line or "spill" in line or "stack" in line:
+            log(f"  peaks ptxas: {line.strip()}")
+
     bd = bound(nbytes(sm, ld, *want), 0)
     sass = peaks_sass()
     row = dict(ms=ms_direct, ms_wrapper=ms_wrapper, device_ms=device_ms,
-               stats_device_us=(sum(stats_us) / len(stats_us)
-                                if stats_us else None),
-               cand_device_us=(sum(cand_us) / len(cand_us)
-                               if cand_us else None),
-               plain_ms=plain_ms, **bd)
+               plain_ms=plain_ms, cluster=peaks_cluster(B, L, sms), sms=sms,
+               **bd)
     log(f"peak_candidates_cuda: B={B} L={L} tile={tile}: all seven outputs "
         f"equal in bits to the plain version (card and CPU); "
-        f"{json.dumps(row)}; the kernels at {bd['bound_ms'] / ms_direct:.1%}"
-        f" of the bound ({bd['bound_by']}); SASS instructions "
-        f"{json.dumps(sass)} (no FFMA)")
+        f"{json.dumps(row)}; the kernel at "
+        f"{bd['bound_ms'] / ms_direct:.1%} of the bound ({bd['bound_by']}); "
+        f"SASS instructions {json.dumps(sass)} (no FFMA)")
 
-    def prepare(lib):
-        # its own outputs in place of args[2:9], the scratch and ints kept
-        outs = [torch.empty_like(t) for t in got]
-        run_args = (*args[:2], *(t.data_ptr() for t in outs), *args[9:])
-        return (lambda: _build.launch(lib, "c3t_peak_candidates",
-                                      "peak_candidates_timing", sm,
-                                      *run_args)), outs
+    def preparing(x, lx, got_x):
+        def prepare(lib):
+            # its own outputs and scratch, at the shape of x
+            outs = [torch.empty_like(t) for t in got_x]
+            tol_x = torch.empty(x.shape[0], dtype=torch.float32,
+                                device=x.device)
+            return (lambda: _build.launch(
+                lib, "c3t_peak_candidates", "peak_candidates_timing", x,
+                x.data_ptr(), lx.data_ptr(), *(t.data_ptr() for t in outs),
+                tol_x.data_ptr(), x.shape[0], L, tile)), outs
+        return prepare
 
     for src_dir in parent_dirs:
-        times = compare_earlier(src_dir, "peaks", prepare, direct, got, 100)
+        times = compare_earlier(src_dir, "peaks", preparing(sm, ld, got),
+                                direct, got, 100)
         log(f"peak_candidates_cuda beside {src_dir}/peaks.cu, in turns "
             f"(ms): {json.dumps(times)}")
+
+    # other batch sizes of a locate launch: these rows cut or repeated,
+    # each held to the plain version, timed through the C interface (and
+    # beside the earlier kernels in turns)
+    for Bx in PEAK_SWEEP_B:
+        reps = -(-Bx // B)
+        x = sm.repeat(reps, 1)[:Bx].contiguous()
+        lx = ld.repeat(reps)[:Bx].contiguous()
+        got_x = peak_candidates_cuda(x, lx, tile)
+        for name, a, c in zip(PEAK_OUTPUTS, got_x,
+                              peak_candidates_batch(x, lx, tile=tile),
+                              strict=True):
+            require_equal(f"peak_candidates_cuda B={Bx} {name}", bits(a),
+                          bits(c))
+        current = preparing(x, lx, got_x)(_build.load("peaks"))[0]
+        entry = dict(**peaks_cluster(Bx, L, sms),
+                     ms=cuda_time_ms(current, 50),
+                     bound_ms=bound(nbytes(x, lx, *got_x), 0)["bound_ms"])
+        for src_dir in parent_dirs:
+            entry[src_dir] = compare_earlier(
+                src_dir, "peaks", preparing(x, lx, got_x), current, got_x,
+                50)
+        log(f"peak_candidates_cuda at B={Bx} L={L}: {json.dumps(entry)}")
     return dict(max_abs_err=err, ms=ms_direct, plain_ms=plain_ms,
                 bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
                 library_ms=None)
 
 
 def peaks_sass() -> dict:
-    """The two peak-candidates kernels' SASS instruction counts; fails
-    on an FFMA (a fused gate or margin would change the bits)."""
+    """The peak-candidates kernel's SASS instruction count; fails on an
+    FFMA (a fused gate or margin would change the bits)."""
     from c3poa_tpu_torch.kernels import _build
     funcs = _build.sass("peaks")
     out = {}
-    for kernel in ("pk_stats_kernel", "pk_cand_kernel"):
+    for kernel in ("pk_kernel",):
         insns = funcs[next(k for k in funcs if kernel in k)]
         fused = sum(1 for _a, i in insns
                     if _build.sass_mnemonic(i).startswith("FFMA"))
@@ -850,10 +941,16 @@ def phase_banded(dev, results):
     plain_ms = checked["banded_fwd_cuda"]["plain_ms"]
     cells = int(ql.astype(np.int64).sum()) * W
     bd = bound(nbytes(Qd, Td, qld, tld, sc, je, mv),
-               OPS_PER_CELL["banded_fwd_cuda"] * cells)
-    log(f"banded forward: P={P} nq={nq} W={W} exact; kernel {ms:.3f} ms "
+               OPS_PER_CELL["banded_fwd_cuda"] * cells, LANE_OPS_PER_S)
+    first = bound(nbytes(Qd, Td, qld, tld, sc, je, mv),
+                  FORWARD_RECURRENCE_OPS_PER_CELL * cells)
+    log(f"banded forward: P={P} nq={nq} W={W} exact; kernel {ms:.4f} ms "
         f"({cells / ms / 1e6:.2f} G cells/s), plain {plain_ms:.3f} ms, "
-        f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+        f"{OPS_PER_CELL['banded_fwd_cuda']} instructions a cell on 128 "
+        f"lanes an SM; the kernel at {bd['bound_ms'] / ms:.1%} of it); "
+        f"{first['bound_ms']:.4f} ms with the recurrence's count "
+        f"({FORWARD_RECURRENCE_OPS_PER_CELL} on 64 lanes)")
     results["banded_fwd_cuda"] = dict(ms=ms, **checked["banded_fwd_cuda"],
                                       **bd)
 
@@ -1779,7 +1876,7 @@ def main(argv=None) -> int:
     ap.add_argument("--parent-peaks", metavar="DIR", action="append",
                     default=[],
                     help="an earlier peaks.cu (with its headers) to time "
-                         "beside the current kernels (may be repeated)")
+                         "beside the current kernel (may be repeated)")
     opts = ap.parse_args(argv)
     try:
         import torch

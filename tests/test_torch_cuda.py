@@ -7,8 +7,9 @@ longer than one pass and a read of the widest payload, the host routes
 for long targets and long splints, the two probe kernels at the int16 extremes, every mode at the smallest and
 largest M they are built for, and int32 overflow, the smoothing
 kernel bit for bit at every edge length of a read and its tiles, and the
-peak-candidates kernels bit for bit on all seven outputs at every tile
-width the locate step takes, on the edge rows of ``torch_peaks_cases``.
+peak-candidates kernel bit for bit on all seven outputs at every tile
+width the locate step takes, on the edge rows and share-seam rows of
+``torch_peaks_cases``, at one read and 128, under every cluster size.
 
 Needs a CUDA card and nvcc; skips without them.  This file imports no
 jax, so it runs on a machine without it:
@@ -28,7 +29,7 @@ from c3poa_tpu_torch.utils import encode, revcomp_encoded
 from torch_adapter_cases import (ADAPTER_SETS, adapter_matrix, batch, combos,
                                  edge_reads)
 from torch_banded_cases import ragged_pairs
-from torch_peaks_cases import edge_rows, random_rows
+from torch_peaks_cases import edge_rows, random_rows, share_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -604,15 +605,41 @@ def _peaks_plain_cpu(sm, lens, tile):
                                  torch.from_numpy(lens), tile=tile)
 
 
+def _peaks_cluster(dev, B, L):
+    """The cluster the kernel launches for B reads of L columns on this
+    card (``chip_smoke.peaks_cluster``, pinned to csrc/peaks.cuh by a CPU
+    test): ranks, share, shared memory a CTA."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return smoke.peaks_cluster(B, L, sms)
+
+
+def _peaks_rows(dev, L, seed):
+    """The edge rows and the share-seam rows of the kernel's shares for
+    them (the edge rows and seam rows are 46 reads)."""
+    sm, lens = edge_rows(L, seed=seed)
+    sm2, lens2 = share_rows(L, _peaks_cluster(dev, len(sm) + 8, L)["share"])
+    return np.concatenate([sm, sm2]), np.concatenate([lens, lens2])
+
+
 @pytest.mark.parametrize("tile", [1, 16, 64])
-@pytest.mark.parametrize("L", [64, 4096, 32768, 131072])
+@pytest.mark.parametrize("L", [64, 4160, 35008, 131072])
 def test_peaks_kernel_matches_plain_bitwise(dev, L, tile):
-    """The edge rows (plateaus across tiles and chunks and one as long as
+    """The edge rows (plateaus across tiles and rounds and one as long as
     the read, ties, survivors, values an ulp around the cuts and margins,
-    zeros, n = 1, 2, L - 1, L) on the card against the CPU plain version,
-    all seven outputs bit for bit, outputs allocated over garbage."""
+    zeros, n = 1, 2, L - 1, L) and the share-seam rows (a plateau across
+    three shares, a run from share 0 into the last, ties and plateaus at
+    the seams, reads ending inside a share) on the card against the CPU
+    plain version, all seven outputs bit for bit, outputs allocated over
+    garbage."""
     from c3poa_tpu_torch.kernels.peaks import peak_candidates_cuda
-    sm, lens = edge_rows(L, seed=L + tile)
+    sm, lens = _peaks_rows(dev, L, L + tile)
     _dirty_allocator(dev, sm.nbytes)
     got = peak_candidates_cuda(torch.from_numpy(sm).to(dev),
                                torch.from_numpy(lens).to(dev), tile)
@@ -621,9 +648,104 @@ def test_peaks_kernel_matches_plain_bitwise(dev, L, tile):
                      f"L={L} tile={tile}")
 
 
+@pytest.mark.parametrize("B", [1, 128])
+def test_peaks_kernel_one_read_and_many(dev, B):
+    """One read of each share-seam row alone, and 128 reads (random rows
+    of random lengths with the seam rows among them): more clusters than
+    the card holds at once."""
+    from c3poa_tpu_torch.kernels.peaks import peak_candidates_cuda
+    L = 35008
+    seam, seam_lens = share_rows(L, _peaks_cluster(dev, 1, L)["share"])
+    if B == 1:
+        cases = [(seam[i:i + 1], seam_lens[i:i + 1])
+                 for i in range(len(seam))]
+    else:
+        rng = np.random.default_rng(17)
+        sm = random_rows(rng, B - len(seam), L)
+        lens = rng.integers(1, L + 1, len(sm)).astype(np.int32)
+        cases = [(np.concatenate([sm, seam]),
+                  np.concatenate([lens, seam_lens]))]
+    for sm, lens in cases:
+        for tile in (16, 64):
+            got = peak_candidates_cuda(torch.from_numpy(sm).to(dev),
+                                       torch.from_numpy(lens).to(dev), tile)
+            _peaks_same_bits(got, _peaks_plain_cpu(sm, lens, tile),
+                             f"B={len(sm)} tile={tile}")
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
+def test_peaks_kernel_same_under_cluster_sizes(dev, ranks):
+    """The clusters the kernel picks by batch size (the most ranks up to 8
+    with B * R <= the SMs: on an H100 SXM, 132 reads for 1 rank, 66 for 2,
+    33 for 4, 16 for 8) at L = 32768, on each size's own share-seam rows
+    and the edge rows, in batches of that many reads (random rows fill
+    the last): all seven outputs bit for bit against the CPU plain
+    version."""
+    from c3poa_tpu_torch.kernels.peaks import peak_candidates_cuda
+    L = 32768
+    B = torch.cuda.get_device_properties(dev).multi_processor_count // ranks
+    plan = _peaks_cluster(dev, B, L)
+    assert (plan["ranks"], plan["share"]) == (ranks, L // ranks), plan
+    sm, lens = edge_rows(L, seed=ranks)
+    sm2, lens2 = share_rows(L, plan["share"])
+    rng = np.random.default_rng(ranks)
+    fill = -(len(sm) + len(sm2)) % B
+    sm = np.concatenate([sm, sm2, random_rows(rng, fill, L)])
+    lens = np.concatenate([lens, lens2,
+                           rng.integers(1, L + 1, fill).astype(np.int32)])
+    for b0 in range(0, len(sm), B):
+        x, lx = sm[b0:b0 + B], lens[b0:b0 + B]
+        for tile in (1, 64):
+            got = peak_candidates_cuda(torch.from_numpy(x).to(dev),
+                                       torch.from_numpy(lx).to(dev), tile)
+            _peaks_same_bits(got, _peaks_plain_cpu(x, lx, tile),
+                             f"ranks={ranks} B={B} reads {b0}.. tile={tile}")
+
+
+@pytest.mark.parametrize("L,tile,shift", [(4098, 2, 0), (4096, 64, 1)])
+def test_peaks_kernel_rows_without_16_byte_loads(dev, L, tile, shift):
+    """Rows the kernel loads a float at a time: L not a multiple of 4, and
+    rows that start 4 bytes past a 16-byte boundary (a view at an
+    offset); bit for bit against the CPU plain version."""
+    from c3poa_tpu_torch.kernels.peaks import peak_candidates_cuda
+    sm, lens = edge_rows(L - L % 64, seed=3)
+    sm = np.pad(sm, ((0, 0), (0, L - sm.shape[1])), constant_values=7.0)
+    lens[0] = L
+    flat = torch.zeros(sm.size + shift, dtype=torch.float32, device=dev)
+    rows = flat[shift:].view(sm.shape)
+    rows.copy_(torch.from_numpy(sm))
+    assert rows.is_contiguous() and (rows.data_ptr() % 16 != 0) == bool(shift)
+    got = peak_candidates_cuda(rows, torch.from_numpy(lens).to(dev), tile)
+    _peaks_same_bits(got, _peaks_plain_cpu(sm, lens, tile),
+                     f"L={L} tile={tile} shift={shift}")
+
+
+def test_peaks_kernel_takes_every_launch_of_the_main_path(dev):
+    """The card takes the kernel's cluster for every launch the main path
+    makes (L up to 131072, B from 1 to 512) and for the widest row it
+    takes, MAX_L (8 ranks of 32768 columns, the most shared memory a
+    CTA): random rows (four, repeated to B) of random lengths, all seven
+    outputs bit for bit against the plain version run on the card."""
+    from c3poa_tpu_torch.kernels.peaks import (MAX_L, peak_candidates_batch,
+                                               peak_candidates_cuda)
+    rng = np.random.default_rng(23)
+    for B, L in ((1, 64), (1, 4160), (16, 32768), (128, 32768),
+                 (512, 32768), (128, 131072), (1, MAX_L)):
+        plan = _peaks_cluster(dev, B, L)
+        assert 1 <= plan["ranks"] <= 8 and \
+            plan["share"] * plan["ranks"] >= L, (B, L, plan)
+        base = random_rows(rng, min(B, 4), L)
+        sm = torch.from_numpy(np.resize(base, (B, L))).to(dev)
+        lens = torch.from_numpy(
+            rng.integers(1, L + 1, B).astype(np.int32)).to(dev)
+        _peaks_same_bits(peak_candidates_cuda(sm, lens, 64),
+                         peak_candidates_batch(sm, lens, 64),
+                         f"B={B} L={L} {plan}")
+
+
 def test_peaks_kernel_many_reads(dev):
-    """300 random reads of random lengths: more blocks than the card
-    runs at once, every read's flags set by many blocks."""
+    """300 random reads of random lengths: more clusters than the card
+    runs at once, every read's flags set by many CTAs."""
     from c3poa_tpu_torch.kernels.peaks import peak_candidates_cuda
     rng = np.random.default_rng(13)
     L = 8192
@@ -638,7 +760,7 @@ def test_peaks_kernel_many_reads(dev):
 
 def test_locate_device_on_card_launches_peak_kernel(dev):
     """``locate_device`` on the card goes through the peak-candidates
-    kernels once a batch, and its outputs equal the CPU route's."""
+    kernel once a batch, and its outputs equal the CPU route's."""
     from c3poa_tpu_torch.kernels import _build
     from c3poa_tpu_torch.kernels.locate import locate_device
     from c3poa_tpu_torch.state import splint_array
@@ -665,7 +787,7 @@ def test_locate_device_on_card_launches_peak_kernel(dev):
 
 
 def test_peaks_wrapper_rejects_what_it_cannot_take(dev):
-    from c3poa_tpu_torch.kernels.peaks import (peak_candidates,
+    from c3poa_tpu_torch.kernels.peaks import (MAX_L, peak_candidates,
                                                peak_candidates_cuda)
     sm = torch.zeros((2, 128), dtype=torch.float32, device=dev)
     lens = torch.full((2,), 128, dtype=torch.int32, device=dev)
@@ -683,3 +805,15 @@ def test_peaks_wrapper_rejects_what_it_cannot_take(dev):
         peak_candidates_cuda(sm[:, ::2], lens, 64)
     with pytest.raises(ValueError, match="CUDA"):
         peak_candidates_cuda(sm.cpu(), lens.cpu(), 64)
+    big = torch.zeros((1, MAX_L + 64), dtype=torch.float32, device=dev)
+    one = torch.full((1,), 100, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=f"limit of {MAX_L} columns"):
+        peak_candidates_cuda(big, one, 64)
+    # the C entry point refuses what the wrapper would (nothing launched)
+    from c3poa_tpu_torch.kernels import _build
+    lib = _build.load("peaks")
+    with torch.cuda.device(dev):
+        rc = lib.c3t_peak_candidates(*([big.data_ptr()] * 10), 1,
+                                     MAX_L + 64, 64,
+                                     torch.cuda.current_stream().cuda_stream)
+    assert rc != 0

@@ -1,10 +1,15 @@
-"""Rows for holding the peak-candidates kernels (``csrc/peaks.cu``, and
+"""Rows for holding the peak-candidates kernel (``csrc/peaks.cu``, and
 ``csrc/peaks.cuh`` under ``tests/peaks_host_driver.cpp``) to the plain
 ``peak_candidates_batch``: random rows with plateaus, plateaus across tile
-and chunk seams and one as long as the read, equal heights and three or
+and round seams and one as long as the read, equal heights and three or
 more survivors in a tile, values one ulp either side of 3x and 6x the
-median and of the margin limits, all-zero rows, and n = 1, 2, L - 1, L.
-No jax: the card tests import it too.
+median and of the margin limits, all-zero rows, and n = 1, 2, L - 1, L
+(``edge_rows``); and rows laid out on the seams of a cluster's shares of
+S columns (``share_rows``): a plateau across three shares, a run started
+in the first share and ending in the last, plateaus ending at a share's
+last column or starting at its first, equal heights either side of every
+seam, reads ending inside a share.  No jax: the card tests import it
+too.
 
 Every value is finite, above NEG_F / 2 and no -0.0: the kernels' domain,
 and what the smoothing writes."""
@@ -12,8 +17,8 @@ and what the smoothing writes."""
 import numpy as np
 
 F = np.float32
-# columns where the kernel's chunks (2048) and the host driver's smaller
-# chunks meet
+# columns where tiles, the kernel's rounds (2048) and shares of 64 to
+# 32768 columns meet
 SEAMS = (64, 128, 1024, 2048, 4096, 32768)
 
 
@@ -185,4 +190,63 @@ def edge_rows(L, seed=0):
     x[L // 2] = 50.0
     x[L // 2 + 1] = up(50.0, 1000)
     add(x)
+    return np.stack(rows), np.asarray(lens, np.int32)
+
+
+def share_rows(L, S):
+    """(sm (B, L) float32, lens (B,) int32) laid out on the seams of
+    shares of S columns (S a multiple of 64, L a multiple of 64 and >=
+    64): a background of 10 and peaks at 100 or more, which the height
+    cut (30) lets through, but for the run as long as the row."""
+    rows, lens = [], []
+    seams = list(range(S, L, S))
+
+    def add(x, n=L):
+        rows.append(np.asarray(x, F))
+        lens.append(n)
+
+    # a plateau from the middle of share 1 to the middle of share 3 (or as
+    # far as the row goes), then a drop
+    x = _background(L)
+    a, e = min(S + S // 2, L - 4), min(3 * S + S // 2, L - 2)
+    x[a:e] = 100.0
+    add(x)
+    # a run started in share 0 (a rise at column 5) that ends in the last
+    # share (its last column L - 3), and the same read cut inside it; the
+    # run is most of the row, so it is negative and the median is its value
+    x = np.full(L, F(-5.0), F)
+    x[:5] = -100.0
+    x[L - 2:] = -100.0
+    add(x)
+    add(x, max(2, L - S // 2 - 1))
+    # at each seam s: a shelf ending at the share's last column, a plateau
+    # rising at the next share's first, and the plateau's height again
+    # before the seam and after the plateau (ties in a tile of 16 or more)
+    x = _background(L)
+    for s in seams:
+        x[s - 3:s] = 50.0
+        x[s:s + 4] = 105.0
+        x[s - 12] = 105.0
+        if s + 10 < L:
+            x[s + 9] = 105.0
+    add(x)
+    # at every other seam a plateau ending at the share's last column, a
+    # drop at the next share's first, and a spike of its height before
+    # it; at the others a plateau across the seam rising further after it
+    x = _background(L)
+    for i, s in enumerate(seams):
+        if i % 2 == 0:
+            x[s - 4:s] = 130.0
+            x[s] = 20.0
+            x[s - 8] = 130.0
+        else:
+            x[s - 1:s + 1] = 130.0
+            if s + 2 < L:
+                x[s + 1] = 131.0
+    add(x)
+    # reads ending one column into a share, at its last column, and
+    # inside the first share, over rows of random bumps
+    rng = np.random.default_rng(S)
+    for n in (min(L, S + 1), min(L, 2 * S), min(L, S // 2 + 3)):
+        add(random_rows(rng, 1, L)[0], n)
     return np.stack(rows), np.asarray(lens, np.int32)
