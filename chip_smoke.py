@@ -30,17 +30,33 @@ repo's Python dependencies (no JAX needed or imported):
    staging limit, and a combo set of a splint too long for the profile
    kernel's tiles, through ``TorchBackend`` on the card: both take the
    host routes and equal the numpy backend;
-8. runs ``python -m c3poa_tpu_torch.cli_postprocess --backend cuda``
+8. runs the consensus CLI on the card on long reads (ROADMAP 1.12): 256
+   reads of ``c3poa_tpu_torch.tools.stress_bigreads`` (3.9-57 kb, up to
+   30 copies), two of 98-131 kb that stay on the card (a locate batch of
+   L > 98304, the peak kernel's cluster of 4 ranks) and two over
+   ``MAX_READ_LEN`` (located on the host): the three output files equal
+   the numpy backend's byte for byte, as shipped and under
+   ``C3POA_FAST_BAND=64`` (a forward launch at W = 64 required); prints
+   each locate launch's B, L and cluster, the card's peak memory, the
+   padded cells, and times one locate batch at the widest L and the
+   forward and walk at the largest nq beside their bounds;
+9. runs ``c3poa_tpu_torch.tools.poa_stress``'s clean and chimera-heavy
+   sets (512 reads, seed 3) through ``TorchBackend`` on the card against
+   the numpy backend (ROADMAP 1.13): trees byte-identical, the heavy
+   set's reads routed to the POA consensus equal in both arms and at
+   least 10%, none in the clean set; then the tool's interleaved rounds
+   at 1024 reads (the throughput ratio and verdict printed, not gated);
+10. runs ``python -m c3poa_tpu_torch.cli_postprocess --backend cuda``
    in-process on that run's consensus reads plus 1000 consensus-like
    reads with adapters and oligo-dT indexes, requires the adapter kernel
    to have launched during that run, and requires its output tree to
    equal the numpy backend's byte for byte;
-9. runs the consensus CLI on the same 1000 reads in 8 groups (``-g
+11. runs the consensus CLI on the same 1000 reads in 8 groups (``-g
    125``) as 1, 2, 4 and 8 processes that share the one card
    (``--coordinator localhost:<port> --num_processes N``): every merged
    tree must equal the numpy backend's byte for byte, and every process
    must have launched the consensus kernels;
-10. kills a consensus CLI on the card (``--backend cuda -g 125
+12. kills a consensus CLI on the card (``--backend cuda -g 125
    --resume``, through ``--cli-process``, in a session of its own) with
    SIGKILL once its manifest records 2 of the 8 groups and it has
    launched every consensus kernel, then runs it again to its end: the
@@ -51,12 +67,12 @@ repo's Python dependencies (no JAX needed or imported):
    restarts each, every consensus group ending a session, both trees
    equal to numpy's; prints each run's wall, its sessions and the wall
    a session beside the uninterrupted runs' (the cost of a restart);
-11. runs the consensus and postprocess runs through
+13. runs the consensus and postprocess runs through
    ``TorchBackend("cuda", devices=["cuda:0"] * n)`` for n = 2 and 3 (n
    streams of the one card; no second card is used): byte-identical to
    numpy, each kernel launched at least n times as often as on one
    device;
-12. prints one JSON line with the kernels (times, launches, and the
+14. prints one JSON line with the kernels (times, launches, and the
    least time the card could take for the same work), the
    ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}`` line.
 
@@ -159,6 +175,18 @@ RESUME_RESTARTS = 3
 RESUME_TIMEOUT = 600
 # the mesh phase: streams of the one card, in turns with one device
 MESH_SHARES = (1, 2, 3, 1)
+# phase_long_reads: reads of stress_bigreads.make_big_dataset, and two
+# edge reads of each (least length, most length, insert, copies): the
+# first pair stays on the card with a locate L in (98304, 131072], where
+# the peak kernel's cluster takes 4 ranks; the second is over
+# MAX_READ_LEN = 131072 and located on the host
+LONG_READS = 256
+LONG_EDGE = ((98305, 131072, 4000, 26), (131073, 262144, 4500, 30))
+# phase_poa_route: the reads of each poa_stress set held to numpy, and of
+# each set of the tool's interleaved rounds
+POA_READS = 512
+POA_MEASURE_READS = 1024
+POA_ROUNDS = 3
 
 # Peaks of one H100 SXM for the bound (the least time for the same
 # work): HBM at 3.35 TB/s (NVIDIA's data sheet); int32 issue at 64 INT32
@@ -918,13 +946,36 @@ def check_banded(Q, T, ql, tl, W, scoring):
         "banded_walk_cuda": dict(max_abs_err=err_w, plain_ms=plain_w)}
 
 
+def forward_bound(Qd, Td, qld, tld, fwd, W: int):
+    """(cells, bound) of a forward launch: the inputs and its outputs
+    ``fwd`` moved once, OPS_PER_CELL instructions a cell of each query's
+    own rows on 128 lanes an SM."""
+    import torch
+    cells = int(qld.to(torch.int64).sum()) * W
+    return cells, bound(nbytes(Qd, Td, qld, tld, *fwd),
+                        OPS_PER_CELL["banded_fwd_cuda"] * cells,
+                        LANE_OPS_PER_S)
+
+
+def walk_bound(qld, tld, je, walk):
+    """(steps a pair, bound) of a walk launch: the path's steps (non-zero
+    2-bit ops), and at least one move word per 8 query rows of each path
+    read beside the walk's inputs and outputs."""
+    import torch
+    ops = walk[2].to(torch.int32)
+    per_pair = sum(((ops >> (2 * k)) & 3 != 0).sum(dim=1) for k in range(4))
+    path_words = int((-(-qld.to(torch.int64) // 8)).sum()) * 4
+    return per_pair, bound(nbytes(qld, tld, je, *walk) + path_words,
+                           OPS_PER_CELL["banded_walk_cuda"] *
+                           int(per_pair.sum()))
+
+
 def phase_banded(dev, results):
     """Kernels 2 and 3 at the align shape: P = 2048, nq = 2048, W = 128;
     then both at the other scoring and band of the consensus run; the
     forward kernel's SASS instructions a row by pipe; the walk of one
     pair alone (its chain floor)."""
     import numpy as np
-    import torch
 
     from c3poa_tpu_torch.kernels import _build
     from c3poa_tpu_torch.kernels.banded import (banded_fwd_cuda,
@@ -939,9 +990,7 @@ def phase_banded(dev, results):
                                                (5, -4, 4, 2))
     ms = cuda_time_ms(lambda: banded_fwd_cuda(Qd, Td, qld, tld, band=W), 5)
     plain_ms = checked["banded_fwd_cuda"]["plain_ms"]
-    cells = int(ql.astype(np.int64).sum()) * W
-    bd = bound(nbytes(Qd, Td, qld, tld, sc, je, mv),
-               OPS_PER_CELL["banded_fwd_cuda"] * cells, LANE_OPS_PER_S)
+    cells, bd = forward_bound(Qd, Td, qld, tld, (sc, je, mv), W)
     first = bound(nbytes(Qd, Td, qld, tld, sc, je, mv),
                   FORWARD_RECURRENCE_OPS_PER_CELL * cells)
     log(f"banded forward: P={P} nq={nq} W={W} exact; kernel {ms:.4f} ms "
@@ -957,14 +1006,8 @@ def phase_banded(dev, results):
     n_rem = int((walk[1] > 0).sum())
     ms = cuda_time_ms(lambda: banded_walk_cuda(mv, qld, tld, je, nq, W), 5)
     plain_ms = checked["banded_walk_cuda"]["plain_ms"]
-    # the path's steps (non-zero 2-bit ops) and at least one move word
-    # per 8 query rows of each path
-    ops = walk[2].to(torch.int32)
-    per_pair = sum(((ops >> (2 * k)) & 3 != 0).sum(dim=1) for k in range(4))
+    per_pair, bd = walk_bound(qld, tld, je, walk)
     steps = int(per_pair.sum())
-    path_words = int((-(-ql.astype(np.int64) // 8)).sum()) * 4
-    bd = bound(nbytes(qld, tld, je, *walk) + path_words,
-               OPS_PER_CELL["banded_walk_cuda"] * steps)
     log(f"banded walk: P={P} exact ({n_rem} pairs out of steps, {steps} "
         f"steps); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
@@ -1244,51 +1287,11 @@ def int16_device_ms(xd, yd) -> float:
 def phase_end_to_end(results):
     """The consensus run through the CLI on the card, then the numpy
     backend on the same reads; outputs must be byte-identical."""
-    from c3poa_tpu_torch import cli
-    from c3poa_tpu_torch.kernels import _build
-    from c3poa_tpu_torch.pipeline.backend import NumpyBackend
-    from c3poa_tpu_torch.pipeline.run import PipelineConfig, run_pipeline
-
-    reads_fq = os.path.join(WORK, "reads.fastq")
-    splint_fa = os.path.join(WORK, "splint.fasta")
-    out_cuda = os.path.join(WORK, "out_cuda")
-    out_np = os.path.join(WORK, "out_numpy")
-    for d in (out_cuda, out_np):
-        shutil.rmtree(d, ignore_errors=True)
-
-    _build.reset_counts()
-    t0 = time.time()
-    rc = cli.main(["-r", reads_fq, "-s", splint_fa, "-o", out_cuda,
-                   "--backend", "cuda", "-g", str(N_READS)])
-    wall = time.time() - t0
-    counts = _build.launch_counts()
-    if rc != 0:
-        raise SmokeFailure(f"cli exited {rc}")
-    stats = json.load(open(os.path.join(out_cuda, "c3poa_stats.json")))
-    log(f"end-to-end cuda: {N_READS} reads in {wall:.3f} s = "
-        f"{N_READS / wall:.3f} reads/s (wall incl. set-up); stats "
-        f"reads_per_sec {stats.get('reads_per_sec')}")
-    log("stages_s " + json.dumps(stats["stages_s"]))
-    log("counters " + json.dumps(stats["counters"]))
-    log("launches " + json.dumps(counts))
+    _, counts = consensus_run_and_numpy(
+        "end-to-end", WORK, os.path.join(WORK, "out_cuda"),
+        os.path.join(WORK, "out_numpy"))
     for name in CONSENSUS_KERNELS:
-        if counts.get(name, 0) <= 0:
-            raise SmokeFailure(f"{name} was not launched by the run")
         results[name]["launches"] = counts[name]
-
-    workers = os.cpu_count() or 1
-    t0 = time.time()
-    run_pipeline(reads_fq, splint_fa, out_np,
-                 PipelineConfig(group_size=-(-N_READS // workers),
-                                num_threads=workers), NumpyBackend())
-    log(f"numpy arm: all {N_READS} reads, {workers} workers, "
-        f"{time.time() - t0:.3f} s")
-    for rel in OUTPUT_FILES:
-        a = open(os.path.join(out_cuda, rel), "rb").read()
-        b = open(os.path.join(out_np, rel), "rb").read()
-        if a != b:
-            raise SmokeFailure(f"{rel} differs from the numpy backend's")
-        log(f"  {rel}: {len(a)} bytes, identical")
 
 
 def phase_host_routes(dev):
@@ -1350,6 +1353,355 @@ def phase_host_routes(dev):
     log(f"long splint ({len(splint)} bases): {len(reads)} reads located on "
         f"the host, equal to numpy (peaks "
         f"{[[int(p) for p in x.peaks] for x in got]})")
+
+
+def sm_count() -> int:
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+class LaunchLog:
+    """The locate and align launches of ``TorchBackend`` while installed:
+    each launch's inputs as the backend made them (``locate_device`` and
+    ``banded_align_trace`` are looked up in its module at each call), so a
+    phase can print their shapes and time the kernels at them after the
+    run."""
+
+    def __init__(self):
+        self.locates: list = []   # (reads, lens, splints, tile)
+        self.aligns: list = []    # (queries, targets, q_lens, t_lens, kw)
+
+    def __enter__(self):
+        from c3poa_tpu_torch.pipeline import torch_backend as tb
+        self._tb = tb
+        self._locate, self._align = tb.locate_device, tb.banded_align_trace
+
+        def locate(r, ln, s, tile):
+            self.locates.append((r, ln, s, tile))
+            return self._locate(r, ln, s, tile=tile)
+
+        def align(q, t, a, b, **kw):
+            self.aligns.append((q, t, a, b, kw))
+            return self._align(q, t, a, b, **kw)
+
+        tb.locate_device, tb.banded_align_trace = locate, align
+        return self
+
+    def __exit__(self, *exc):
+        self._tb.locate_device = self._locate
+        self._tb.banded_align_trace = self._align
+
+
+def long_read_set(path: str):
+    """``stress_bigreads.make_big_dataset(path, LONG_READS)`` with the
+    edge reads of ``LONG_EDGE`` added on its splint: lengths checked
+    against their ranges and printed."""
+    import numpy as np
+
+    from c3poa_tpu_torch import sim
+    from c3poa_tpu_torch.tools import stress_bigreads
+
+    reads = stress_bigreads.make_big_dataset(path, LONG_READS, seed=SEED)
+    splint = open(os.path.join(path, "splint.fasta")).read().split()[1]
+    rng = np.random.default_rng(SEED + 6)
+    for k, (lo, hi, insert_len, copies) in enumerate(LONG_EDGE):
+        for j in range(2):
+            r = sim.make_read(rng, f"edge_{k}_{j}", splint,
+                              insert_len=insert_len, n_copies=copies,
+                              error=0.05)
+            log(f"edge read {r.name}: {len(r.seq)} bases ({copies} copies "
+                f"of {insert_len}; range {lo}..{hi})")
+            if not lo <= len(r.seq) <= hi:
+                raise SmokeFailure(f"edge read {r.name} has {len(r.seq)} "
+                                   f"bases, outside {lo}..{hi}")
+            reads.append(r)
+    sim.write_fastq(os.path.join(path, "reads.fastq"), reads)
+    return reads
+
+
+def consensus_run_and_numpy(what: str, path: str, out: str, out_np: str):
+    """``python -m c3poa_tpu_torch.cli --backend cuda`` in-process on
+    ``path``'s reads in one group, its launches counted from 0 and the
+    card's peak memory read, then the numpy backend on the same reads with
+    a worker a core: the three output files byte-identical, every
+    consensus kernel launched.  Returns (stats, launches)."""
+    import torch
+
+    from c3poa_tpu_torch import cli
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.pipeline.backend import NumpyBackend
+    from c3poa_tpu_torch.pipeline.run import PipelineConfig, run_pipeline
+
+    reads_fq = os.path.join(path, "reads.fastq")
+    splint_fa = os.path.join(path, "splint.fasta")
+    n = sum(1 for _ in open(reads_fq)) // 4
+    for d in (out, out_np):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.time()
+    rc = cli.main(["-r", reads_fq, "-s", splint_fa, "-o", out,
+                   "--backend", "cuda", "-g", str(n)])
+    wall = time.time() - t0
+    counts = _build.launch_counts()
+    if rc != 0:
+        raise SmokeFailure(f"{what}: cli exited {rc}")
+    stats = json.load(open(os.path.join(out, "c3poa_stats.json")))
+    log(f"{what} cuda: {n} reads in {wall:.3f} s = {n / wall:.3f} reads/s "
+        f"(wall incl. set-up); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    log(f"{what} stages_s " + json.dumps(stats["stages_s"]))
+    log(f"{what} counters " + json.dumps(stats["counters"]))
+    log(f"{what} launches " + json.dumps(counts))
+    for name in CONSENSUS_KERNELS:
+        if counts.get(name, 0) <= 0:
+            raise SmokeFailure(f"{what}: {name} was not launched")
+    workers = os.cpu_count() or 1
+    t0 = time.time()
+    run_pipeline(reads_fq, splint_fa, out_np,
+                 PipelineConfig(group_size=-(-n // workers),
+                                num_threads=workers), NumpyBackend())
+    log(f"{what} numpy arm: {n} reads, {workers} workers, "
+        f"{time.time() - t0:.3f} s")
+    require_same_outputs(what, out, out_np)
+    log(f"{what}: {', '.join(OUTPUT_FILES)} identical to numpy's")
+    return stats, counts
+
+
+def time_locate_batch(log_: LaunchLog) -> None:
+    """The locate launch of the widest L (the most reads among those),
+    as launched: its ms and device activities beside the bound of the
+    profile's and smoothing's instructions over the batch's real cells
+    (the inputs read once and the outputs written once by bytes); then
+    its three kernels alone at that shape, each beside its bound as in
+    ``phase_profile`` and ``smooth_peaks_row``."""
+    import torch
+
+    from c3poa_tpu_torch.kernels.locate import locate_device
+    from c3poa_tpu_torch.kernels.peaks import peak_candidates_cuda
+    from c3poa_tpu_torch.kernels.smooth import smooth3_cuda
+    from c3poa_tpu_torch.kernels.sw_profile import start_profile_cuda
+
+    R, ld, S, tile = max(log_.locates,
+                         key=lambda x: (x[0].shape[1], x[0].shape[0]))
+    B, L = R.shape
+    C = S.shape[0]
+    cols = int(ld.to(torch.int64).sum())
+    m = int((S != 4).sum(dim=1).max())
+    ms = cuda_time_ms(lambda: locate_device(R, ld, S, tile=tile), 5)
+    acts = device_activities(lambda: locate_device(R, ld, S, tile=tile))
+    out = locate_device(R, ld, S, tile=tile)
+    need = {"start_profile_cuda": OPS_PER_CELL["start_profile_cuda"] *
+            cols * C * m,
+            "smooth3_cuda": OPS_PER_CELL["smooth3_cuda"] * cols}
+    bd = bound(nbytes(R, ld, S, *out), sum(need.values()), LANE_OPS_PER_S)
+    log(f"locate batch at the widest L: B={B} C={C} L={L} m={m} ({cols} "
+        f"read columns, {B * L} padded); cluster "
+        f"{json.dumps(peaks_cluster(B, L, sm_count()))}; {ms:.4f} ms, "
+        f"{len(acts)} device activities, {sum(t for _n, t in acts)} us; "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+        f"{OPS_PER_CELL['start_profile_cuda']} instructions a profile cell "
+        f"and {OPS_PER_CELL['smooth3_cuda']} a smoothed column on 128 lanes "
+        f"an SM; the batch at {bd['bound_ms'] / ms:.1%} of it)")
+
+    combo = out[0]
+    prof = start_profile_cuda(R, S, ld)
+    sm = smooth3_cuda(prof, combo, ld)
+    cand = peak_candidates_cuda(sm, ld, tile)
+    rows = (("start_profile_cuda", lambda: start_profile_cuda(R, S, ld),
+             bound(nbytes(R, S, ld, prof), need["start_profile_cuda"],
+                   LANE_OPS_PER_S)),
+            ("smooth3_cuda", lambda: smooth3_cuda(prof, combo, ld),
+             bound(cols * 4 + nbytes(sm, combo, ld) + 41 * 4,
+                   need["smooth3_cuda"], LANE_OPS_PER_S)),
+            ("peak_candidates_cuda",
+             lambda: peak_candidates_cuda(sm, ld, tile),
+             bound(nbytes(sm, ld, *cand), 0)))
+    for name, fn, kb in rows:
+        kms = cuda_time_ms(fn, 5)
+        log(f"  {name} alone there: {kms:.4f} ms, bound "
+            f"{kb['bound_ms']:.4f} ms ({kb['bound_by']}; the kernel at "
+            f"{kb['bound_ms'] / kms:.1%} of it)")
+
+
+def time_banded(log_: LaunchLog) -> None:
+    """The forward and the walk at the align launch of the largest nq (its
+    P, band and scoring as launched), each beside its bound as in
+    ``phase_banded``."""
+    from c3poa_tpu_torch.kernels.banded import (banded_fwd_cuda,
+                                                banded_walk_cuda)
+
+    Q, T, ql, tl, kw = max(log_.aligns,
+                           key=lambda x: (x[0].shape[1], x[0].shape[0]))
+    P, nq = Q.shape
+    W = kw["band"]
+    sc, je, mv = banded_fwd_cuda(Q, T, ql, tl, **kw)
+    walk = banded_walk_cuda(mv, ql, tl, je, nq, W)
+    ms_f = cuda_time_ms(lambda: banded_fwd_cuda(Q, T, ql, tl, **kw), 5)
+    ms_w = cuda_time_ms(lambda: banded_walk_cuda(mv, ql, tl, je, nq, W), 5)
+    cells, bf = forward_bound(Q, T, ql, tl, (sc, je, mv), W)
+    per_pair, bw = walk_bound(ql, tl, je, walk)
+    steps = int(per_pair.sum())
+    log(f"banded forward at the largest nq: P={P} nq={nq} "
+        f"nt={T.shape[1]} W={W} ({cells} cells): {ms_f:.4f} ms, bound "
+        f"{bf['bound_ms']:.4f} ms ({bf['bound_by']}; the kernel at "
+        f"{bf['bound_ms'] / ms_f:.1%} of it)")
+    log(f"banded walk there: {steps} steps, {int((walk[1] > 0).sum())} "
+        f"pairs out of steps: {ms_w:.4f} ms, bound {bw['bound_ms']:.4f} ms "
+        f"({bw['bound_by']})")
+
+
+def phase_long_reads():
+    """Long and overlong reads through the consensus CLI on the card
+    (ROADMAP 1.12): the set of ``long_read_set`` against the numpy
+    backend, once as shipped and once under ``C3POA_FAST_BAND=64`` (both
+    arms; restored afterwards); each locate launch's B, L and cluster;
+    then one locate batch at the widest L and the forward and walk at the
+    largest nq, timed at the shapes the run launched."""
+    path = os.path.join(WORK, "long")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    t0 = time.time()
+    long_read_set(path)
+    log(f"long-read set: {LONG_READS} + {2 * len(LONG_EDGE)} reads in "
+        f"{time.time() - t0:.3f} s")
+
+    with LaunchLog() as launches:
+        stats, _ = consensus_run_and_numpy(
+            "long reads", path, os.path.join(path, "out_cuda"),
+            os.path.join(path, "out_numpy"))
+    c = stats["counters"]
+    log(f"long reads: locate_cells_padded / real = "
+        f"{c['locate_cells_padded'] / c['locate_cells_real']:.3f}")
+    if c.get("overlong_reads_host_located") != 2:
+        raise SmokeFailure(f"overlong_reads_host_located = "
+                           f"{c.get('overlong_reads_host_located')}, not 2")
+    sms = sm_count()
+    for r, _ln, s, _tile in launches.locates:
+        cl = peaks_cluster(r.shape[0], r.shape[1], sms)
+        log(f"  locate launch B={r.shape[0]} C={s.shape[0]} L={r.shape[1]}: "
+            f"cluster {json.dumps(cl)}")
+    if not any(r.shape[1] > 98304 and
+               peaks_cluster(r.shape[0], r.shape[1], sms)["ranks"] == 4
+               for r, *_ in launches.locates):
+        raise SmokeFailure("no locate launch with L > 98304 ran a cluster "
+                           "of 4 ranks")
+    log("  align launches (W, P, nq): " + json.dumps(
+        [(a[4]["band"], *a[0].shape) for a in launches.aligns]))
+
+    before = os.environ.get("C3POA_FAST_BAND")
+    os.environ["C3POA_FAST_BAND"] = "64"
+    try:
+        with LaunchLog() as fast:
+            stats, _ = consensus_run_and_numpy(
+                "long reads, C3POA_FAST_BAND=64", path,
+                os.path.join(path, "fast_cuda"),
+                os.path.join(path, "fast_numpy"))
+    finally:
+        if before is None:
+            os.environ.pop("C3POA_FAST_BAND")
+        else:
+            os.environ["C3POA_FAST_BAND"] = before
+    c = stats["counters"]
+    w64 = sum(a[4]["band"] == 64 for a in fast.aligns)
+    log(f"fast band: {w64} of {len(fast.aligns)} align launches at W = 64; "
+        f"align_band_escalated {c.get('align_band_escalated', 0)}, "
+        f"align_rewalk {c.get('align_rewalk', 0)}")
+    if not w64:
+        raise SmokeFailure("no forward launch at W = 64 under the fast band")
+
+    time_locate_batch(launches)
+    time_banded(launches)
+
+
+def head_reads(src: str, dst: str, n: int) -> None:
+    """The first ``n`` reads of ``src``'s set into ``dst``: the set
+    ``poa_stress.make_dataset`` writes for ``n`` reads (its reads are
+    drawn one after another from one generator)."""
+    os.makedirs(dst, exist_ok=True)
+    shutil.copy(os.path.join(src, "splint.fasta"), dst)
+    with open(os.path.join(src, "reads.fastq")) as fh, \
+            open(os.path.join(dst, "reads.fastq"), "w") as out:
+        for k, line in enumerate(fh):
+            if k == 4 * n:
+                break
+            out.write(line)
+
+
+def phase_poa_route(dev):
+    """The POA route on the card (ROADMAP 1.13): ``poa_stress``'s clean
+    and chimera-heavy sets (seed 3) of POA_READS reads through
+    ``TorchBackend`` at the tool's group size, each beside the numpy
+    backend (the heavy set in one process, as the tool runs it, so its
+    ``c3poa_stats.json`` counts the routed reads): trees byte-identical,
+    the heavy set's routed reads equal and at least 10% of the reads, the
+    clean set's none; then the tool's interleaved rounds at
+    POA_MEASURE_READS reads on the card (ratio and verdict printed, not
+    gated)."""
+    from c3poa_tpu_torch.kernels import _build
+    from c3poa_tpu_torch.pipeline.backend import NumpyBackend
+    from c3poa_tpu_torch.pipeline.run import PipelineConfig, run_pipeline
+    from c3poa_tpu_torch.pipeline.torch_backend import TorchBackend
+    from c3poa_tpu_torch.tools import poa_stress
+
+    root = os.path.join(WORK, "poa")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    sets = {}
+    for tag, frac in (("clean", 0.0), ("heavy", 0.18)):
+        big = os.path.join(root, f"{tag}_{POA_MEASURE_READS}")
+        os.makedirs(big)
+        poa_stress.make_dataset(big, POA_MEASURE_READS, frac, seed=3)
+        sets[tag] = os.path.join(root, f"{tag}_{POA_READS}")
+        head_reads(big, sets[tag], POA_READS)
+    log(f"POA sets: {POA_MEASURE_READS} reads each in "
+        f"{time.time() - t0:.3f} s")
+
+    gs = min(512, max(1, POA_READS // 2))
+    backend = TorchBackend(dev)
+    for tag, d in sets.items():
+        out, out_np = os.path.join(d, "out_cuda"), os.path.join(d, "out_np")
+        _build.reset_counts()
+        rps, counters = poa_stress.run_once(d, out, backend, gs)
+        counts = _build.launch_counts()
+        log(f"POA {tag} cuda: {rps:.3f} reads/s, {json.dumps(counters)}, "
+            f"launches {json.dumps(counts)}")
+        for name in CONSENSUS_KERNELS:
+            if counts.get(name, 0) <= 0:
+                raise SmokeFailure(f"POA {tag}: {name} was not launched")
+        routed = counters.get("poa_fallback_reads", 0)
+        t0 = time.time()
+        if tag == "heavy":
+            _, want = poa_stress.run_once(d, out_np, NumpyBackend(), gs)
+            if want.get("poa_fallback_reads") != routed or \
+                    routed < 0.1 * POA_READS:
+                raise SmokeFailure(
+                    f"POA heavy: {routed} reads routed on the card, "
+                    f"{want.get('poa_fallback_reads')} by numpy, of "
+                    f"{POA_READS} (at least 10% required)")
+        else:
+            workers = os.cpu_count() or 1
+            run_pipeline(os.path.join(d, "reads.fastq"),
+                         os.path.join(d, "splint.fasta"), out_np,
+                         PipelineConfig(group_size=-(-POA_READS // workers),
+                                        num_threads=workers),
+                         NumpyBackend())
+            if routed:
+                raise SmokeFailure(f"POA clean: {routed} reads routed")
+        log(f"POA {tag} numpy arm: {time.time() - t0:.3f} s")
+        require_same_outputs(f"POA {tag}", out, out_np)
+        log(f"POA {tag}: {routed} of {POA_READS} reads routed; "
+            f"{', '.join(OUTPUT_FILES)} identical to numpy's")
+
+    res = poa_stress.measure(
+        os.path.join(root, f"clean_{POA_MEASURE_READS}"),
+        os.path.join(root, f"heavy_{POA_MEASURE_READS}"),
+        POA_MEASURE_READS, POA_ROUNDS, backend)
+    log(f"POA route, {POA_MEASURE_READS} reads, {POA_ROUNDS} rounds on the "
+        f"card: medians clean {res['median_clean']:.3f} vs heavy "
+        f"{res['median_heavy']:.3f} reads/s -> {res['ratio']:.3f}x (routed "
+        f"{res['routed']}/{POA_MEASURE_READS}); target (>=10% routed, <20% "
+        f"loss): {'MET' if res['met'] else 'NOT MET'} (recorded, not gated)")
 
 
 def tree_bytes(root: str) -> dict:
@@ -1936,6 +2288,8 @@ def main(argv=None) -> int:
                 (phase_end_to_end, (results,)),
                 (phase_processes, (walls,)),
                 (phase_host_routes, (dev,)),
+                (phase_long_reads, ()),
+                (phase_poa_route, (dev,)),
                 (phase_postprocess_end_to_end, (results, walls)),
                 (phase_resume, (walls,)),
                 (phase_mesh, (dev, results))):

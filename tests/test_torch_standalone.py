@@ -86,8 +86,10 @@ import c3poa_tpu_torch.tools.demux_nextera_tso
 import c3poa_tpu_torch.tools.floor_probe
 import c3poa_tpu_torch.tools.int16_probe
 import c3poa_tpu_torch.tools.make_example
+import c3poa_tpu_torch.tools.poa_stress
 import c3poa_tpu_torch.tools.smooth_error
 import c3poa_tpu_torch.tools.soak
+import c3poa_tpu_torch.tools.stress_bigreads
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split('.')[0] in ('jax', 'jaxlib', 'c3poa_tpu'))
