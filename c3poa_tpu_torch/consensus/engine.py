@@ -148,6 +148,14 @@ def _poa_consensus_read(subreads, sub_quals):
     return cons, cq, True
 
 
+def _poa_read_span(profiler, group, subreads, sub_quals):
+    """``_poa_consensus_read`` on a pool thread, timed as a ``poa_read``
+    span of ``group`` into ``profiler``: the submitting run's, captured
+    at submission, never ``prof.current``."""
+    with profiler.stage("poa_read", group=group):
+        return _poa_consensus_read(subreads, sub_quals)
+
+
 def _diverged_owner(others, poa_fallback: float) -> bool:
     """Divergence detector on round-1 records (see ConsensusParams
     .poa_fallback): mean symmetric aligned fraction of the voters below
@@ -345,7 +353,8 @@ def consensus_align(state0: dict, align_many: AlignMany | None = None
                 and _diverged_owner(by_owner.get(ji, []),
                                     p.poa_fallback)):
             poa_futures[ji] = _poa_pool().submit(
-                _poa_consensus_read, job.subreads, job.sub_quals)
+                _poa_read_span, prof.current, prof.current_group(),
+                job.subreads, job.sub_quals)
     return {"jobs": state0["jobs"], "p": state0["p"],
             "align_many": align_many, "n": state0["n"],
             "cons": state0["cons"], "cons_q": state0["cons_q"],

@@ -30,6 +30,8 @@ import subprocess
 import threading
 import time
 
+from ..utils import prof
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -142,10 +144,11 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            job = _start(name)
-            if job is not None:
-                _finish(name, job)
-            lib = bind(ctypes.CDLL(_lib_path(name)), SIGNATURES[name])
+            with prof.current.stage("kernel_load"):
+                job = _start(name)
+                if job is not None:
+                    _finish(name, job)
+                lib = bind(ctypes.CDLL(_lib_path(name)), SIGNATURES[name])
             _LIBS[name] = lib
         return lib
 

@@ -65,7 +65,6 @@ class NumpyBackend:
         # backend's shared record arenas (tpu_backend.align_many)
         from ..consensus.engine import _pair_band
         from ..utils import prof
-        prof.current.count("align_pairs", len(pairs))
         prof.current.count(
             "align_cells",
             sum(len(pr[0]) * _pair_band(pr, params) for pr in pairs))

@@ -196,15 +196,15 @@ class _GroupStream:
         self._marks: dict = {}   # gi -> (offset_after, short_reads_seen)
         self.seekable = is_plain_fastq(path)
         self._start_offset = 0
-        self._start_gi = 0
+        self.start_gi = 0
         if (self.seekable and skip_groups and manifest
                 and manifest.get("next_offset") is not None):
             self._start_offset = manifest["next_offset"]
-            self._start_gi = skip_groups
+            self.start_gi = skip_groups
             filter_stats.short_reads = manifest.get("short_reads_seen", 0)
 
     def __iter__(self):
-        gi = self._start_gi
+        gi = self.start_gi
         if not self.seekable:
             for group in _read_groups(self.path, self.cfg.lencutoff,
                                       self.cfg.group_size,
@@ -333,13 +333,17 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
     # CPU path: parallelize whole groups over processes (the reference's
     # mp.Pool role, C3POa.py:236-257) with in-order writes
     use_mp = (not overlap) and cfg.num_threads > 1
-    executor = ThreadPoolExecutor(max_workers=1) if overlap else None
+    executor = (ThreadPoolExecutor(max_workers=1,
+                                   thread_name_prefix="c3_align")
+                if overlap else None)
 
     def mine(gi):
         """Does this host own 1-based group gi?"""
         return (gi - 1) % cfg.process_count == cfg.process_index
 
     def checkpoint(gi):
+        if prof.recording():
+            profiler.gauge("rss_mb", rss_mb())
         if not cfg.compress:
             sizes = writers.sizes()
             if multihost:
@@ -391,7 +395,9 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
     # under multihost round-robin with an even process_count) never
     # overlap.
     deep = overlap and cfg.cons.rounds == 1
-    loc_executor = ThreadPoolExecutor(max_workers=1) if deep else None
+    loc_executor = (ThreadPoolExecutor(max_workers=1,
+                                       thread_name_prefix="c3_locate")
+                    if deep else None)
 
     # filter_stats counts short reads while streaming; on a seek-resume
     # the skipped prefix's count is restored from the manifest instead
@@ -408,7 +414,21 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
             from collections import deque
             owned = 0  # this host's processed-group counter (arena slot)
             prepped: deque = deque()  # (gi, prep future), depth <= 2
-            for gi, group in stream:
+
+            def finalize(pgi, pfut):
+                with profiler.stage("wait_prep", group=pgi):
+                    prep = pfut.result()
+                with profiler.stage("finalize", group=pgi):
+                    finish_prep(pgi, prep)
+
+            groups = iter(stream)
+            gi = stream.start_gi
+            while True:
+                with profiler.stage("read_group", group=gi + 1):
+                    item = next(groups, None)
+                if item is None:
+                    break
+                gi, group = item
                 if gi <= skip_groups or not mine(gi):
                     continue
                 owned += 1
@@ -420,29 +440,30 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
                 split = os.environ.get("C3POA_DEEP_SPLIT", "1") == "1"
                 if split:
                     fut_host = loc_executor.submit(
-                        _host_prepare_group, group, combos, cfg, backend)
+                        _in_span, "host_prep", gi, _host_prepare_group,
+                        group, combos, cfg, backend)
                 else:
                     fut_host = loc_executor.submit(
-                        _locate_group, group, combos, cfg, backend)
+                        _in_span, "host_prep", gi, _locate_group,
+                        group, combos, cfg, backend)
                 if len(prepped) == 2:
                     # finalize the oldest group BEFORE queueing the next
                     # prep: frees its record arena slot
-                    pgi, pfut = prepped.popleft()
-                    finish_prep(pgi, pfut.result())
+                    finalize(*prepped.popleft())
                 if split:
                     fut = executor.submit(
-                        lambda s=owned % 2, fh=fut_host:
-                            _device_prepare_group(fh.result(), cfg,
-                                                  backend, s))
+                        lambda g=gi, s=owned % 2, fh=fut_host:
+                            _in_span("device_prep", g, _device_prepare_group,
+                                     _wait_host(g, fh), cfg, backend, s))
                 else:
                     fut = executor.submit(
-                        lambda g=group, s=owned % 2, fl=fut_host:
-                            _prepare_group(g, combos, cfg, backend,
-                                           fl.result(), s))
+                        lambda g=gi, gr=group, s=owned % 2, fl=fut_host:
+                            _in_span("device_prep", g, _prepare_group,
+                                     gr, combos, cfg, backend,
+                                     _wait_host(g, fl), s))
                 prepped.append((gi, fut))
             while prepped:
-                pgi, pfut = prepped.popleft()
-                finish_prep(pgi, pfut.result())
+                finalize(*prepped.popleft())
         else:
             pending = None  # (gi, group, future)
             for gi, group in stream:
@@ -533,6 +554,19 @@ def _run_groups_mp(stream, combos, cfg, writers, stats, filter_stats,
         stats.short_reads = filter_stats.short_reads
         progress.update(wstats["total_reads"])
         checkpoint(gi)
+
+
+def _in_span(name: str, gi: int, fn, *args):
+    """``fn(*args)`` inside a top-level span of group ``gi`` on the
+    calling thread (the deep pipeline's locate and align threads)."""
+    with prof.current.stage(name, group=gi):
+        return fn(*args)
+
+
+def _wait_host(gi: int, fut):
+    """The align thread's wait on the locate thread's prep of ``gi``."""
+    with prof.current.stage("wait_host", group=gi):
+        return fut.result()
 
 
 def _locate_group(group, combos, cfg: PipelineConfig, backend):

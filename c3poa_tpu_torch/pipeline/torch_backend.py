@@ -116,47 +116,54 @@ class TorchBackend:
             # splints too long for the profile kernel's tiles: every read
             # takes the exact host path, on both devices
             prof.current.count("long_splint_host_located", len(reads))
-            return NumpyBackend().locate_many(reads, combos, min_dist)
+            with prof.current.stage("locate_host"):
+                return NumpyBackend().locate_many(reads, combos, min_dist)
         out: list = [None] * len(reads)
         overlong = [i for i, r in enumerate(reads) if len(r) > MAX_READ_LEN]
         if overlong:
             prof.current.count("overlong_reads_host_located", len(overlong))
-            host = NumpyBackend()
-            for i, r in zip(overlong, host.locate_many(
-                    [reads[i] for i in overlong], combos, min_dist)):
+            with prof.current.stage("locate_host"):
+                host = NumpyBackend().locate_many(
+                    [reads[i] for i in overlong], combos, min_dist)
+            for i, r in zip(overlong, host):
                 out[i] = r
         # dispatch every batch first (the device runs ahead), then
         # materialize
         tile = tile_for_distance(int(min_dist))
         launches = []
-        for chunk, R, lens in self._read_batches(
-                reads, [i for i, r in enumerate(reads)
-                        if len(r) <= MAX_READ_LEN], C, MAX_LOCATE_BATCH):
-            prof.current.count("locate_launches")
-            prof.current.count("locate_cells_padded", R.size * C)
-            prof.current.count("locate_cells_real", int(lens.sum()) * C)
-            launches.append((chunk, self.mesh.dispatch(
-                lambda dev, r, ln: locate_device(r, ln, S[dev], tile=tile),
-                R, lens)))
+        with prof.current.stage("locate_dispatch"):
+            for chunk, R, lens in self._read_batches(
+                    reads, [i for i, r in enumerate(reads)
+                            if len(r) <= MAX_READ_LEN], C, MAX_LOCATE_BATCH):
+                prof.current.count("locate_launches")
+                prof.current.count("locate_cells_padded", R.size * C)
+                prof.current.count("locate_cells_real", int(lens.sum()) * C)
+                launches.append((chunk, self.mesh.dispatch(
+                    lambda dev, r, ln: locate_device(r, ln, S[dev],
+                                                     tile=tile),
+                    R, lens)))
 
         deep_rerun: list[int] = []
         margin_rerun: list[int] = []
         for chunk, res in launches:
-            combo, score, cand_pos, cand_h, _med, deep, marg = \
-                self.mesh.gather(res)
-            peaks = select_peaks_host(cand_pos, cand_h, int(min_dist))
-            marg = marg | margin_competitors_host(cand_pos, cand_h,
-                                                  int(min_dist))
-            for r, i in enumerate(chunk):
-                out[i] = LocateResult(int(combo[r]), int(score[r]),
-                                      peaks[r].astype(np.int64))
-                if deep[r]:
-                    deep_rerun.append(i)
-                elif marg[r]:
-                    margin_rerun.append(i)
+            with prof.current.stage("locate_wait"):
+                combo, score, cand_pos, cand_h, _med, deep, marg = \
+                    self.mesh.gather(res)
+            with prof.current.stage("locate_select"):
+                peaks = select_peaks_host(cand_pos, cand_h, int(min_dist))
+                marg = marg | margin_competitors_host(cand_pos, cand_h,
+                                                      int(min_dist))
+                for r, i in enumerate(chunk):
+                    out[i] = LocateResult(int(combo[r]), int(score[r]),
+                                          peaks[r].astype(np.int64))
+                    if deep[r]:
+                        deep_rerun.append(i)
+                    elif marg[r]:
+                        margin_rerun.append(i)
         if deep_rerun or margin_rerun:
-            self._rerun_flagged(reads, out, S, C, deep_rerun, margin_rerun,
-                                min_dist)
+            with prof.current.stage("locate_rerun"):
+                self._rerun_flagged(reads, out, S, C, deep_rerun,
+                                    margin_rerun, min_dist)
         return out
 
     def _read_batches(self, reads, idxs, C, cap):
@@ -253,7 +260,6 @@ class TorchBackend:
         launches: a second align_many within one group (the zero-repeat
         overlap batch) must not reuse the main call's arena phases while
         both calls' records are alive (native.ops_records_batch)."""
-        prof.current.count("align_pairs", len(pairs))
         prof.current.count(
             "align_cells",
             sum(len(pr[0]) * _pair_band(pr, params) for pr in pairs))
@@ -306,34 +312,18 @@ class TorchBackend:
         if overlong:
             prof.current.count("align_overlong_host", overlong)
         if serial:
-            res = serial_align_many([pairs[i] for i in serial], params)
+            with prof.current.stage("align_host"):
+                res = serial_align_many([pairs[i] for i in serial], params)
             for i, r in zip(serial, res):
                 out[i] = r
 
         # dispatch every launch first (the device runs ahead of the host
         # record building)
         launches = []
-        for W, chunk in self._chunks(device_items):
-            nq = _round_up(max(len(pairs[i][0]) for i in chunk), 64)
-            nt = _round_up(max(len(pairs[i][2]) for i in chunk), 64)
-            P = len(chunk)
-            Q = np.full((P, nq), 4, dtype=np.int8)
-            T = np.full((P, nt), 4, dtype=np.int8)
-            ql = np.zeros(P, dtype=np.int32)
-            tl = np.zeros(P, dtype=np.int32)
-            for r, i in enumerate(chunk):
-                q, t = pairs[i][0], pairs[i][2]
-                Q[r, :len(q)] = q
-                T[r, :len(t)] = t
-                ql[r], tl[r] = len(q), len(t)
-            prof.current.count("align_launches")
-            prof.current.count("align_cells_padded", P * nq * W)
-            res = self.mesh.dispatch(
-                lambda _dev, q, t, a, b: banded_align_trace(
-                    q, t, a, b, band=W, match=params.match,
-                    mismatch=params.mismatch, gap_open=params.gap_open,
-                    gap_ext=params.gap_ext), Q, T, ql, tl)
-            launches.append((W, chunk, res))
+        with prof.current.stage("align_dispatch"):
+            for W, chunk in self._chunks(device_items):
+                launches.append((W, chunk,
+                                 self._align_launch(pairs, chunk, W, params)))
 
         leftovers = []            # python-fallback work items
         rewalk: list[int] = []    # walks that ran out of steps
@@ -389,16 +379,42 @@ class TorchBackend:
             # identical escalation to serial_align_many: realign at the
             # full band on the host
             prof.current.count("align_band_escalated", len(escalate))
-            res = serial_align_many([pairs[i][:3] for i in escalate], params)
+            with prof.current.stage("align_host"):
+                res = serial_align_many([pairs[i][:3] for i in escalate],
+                                        params)
             for i, r in zip(escalate, res):
                 out[i] = r
         if rewalk:
             # paths longer than the walk's step budget: host realign
             prof.current.count("align_rewalk", len(rewalk))
-            res = serial_align_many([pairs[i] for i in rewalk], params)
+            with prof.current.stage("align_host"):
+                res = serial_align_many([pairs[i] for i in rewalk], params)
             for i, r in zip(rewalk, res):
                 out[i] = r
         return out
+
+    def _align_launch(self, pairs, chunk, W, params: ConsensusParams):
+        """Pack the pairs ``chunk`` into padded (P, nq) / (P, nt) rows,
+        upload them and launch one band-``W`` forward and walk."""
+        nq = _round_up(max(len(pairs[i][0]) for i in chunk), 64)
+        nt = _round_up(max(len(pairs[i][2]) for i in chunk), 64)
+        P = len(chunk)
+        Q = np.full((P, nq), 4, dtype=np.int8)
+        T = np.full((P, nt), 4, dtype=np.int8)
+        ql = np.zeros(P, dtype=np.int32)
+        tl = np.zeros(P, dtype=np.int32)
+        for r, i in enumerate(chunk):
+            q, t = pairs[i][0], pairs[i][2]
+            Q[r, :len(q)] = q
+            T[r, :len(t)] = t
+            ql[r], tl[r] = len(q), len(t)
+        prof.current.count("align_launches")
+        prof.current.count("align_cells_padded", P * nq * W)
+        return self.mesh.dispatch(
+            lambda _dev, q, t, a, b: banded_align_trace(
+                q, t, a, b, band=W, match=params.match,
+                mismatch=params.mismatch, gap_open=params.gap_open,
+                gap_ext=params.gap_ext), Q, T, ql, tl)
 
     @staticmethod
     def _build_record(out, work_item):
