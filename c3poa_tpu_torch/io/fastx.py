@@ -2,9 +2,9 @@
 
 Replaces the reference's use of ``mappy.fastx_read`` (C3POa.py:201,232,239,
 bin/determine_consensus.py:98, C3POa_postprocessing.py:88,145).  This
-module is the always-available Python implementation; a batch C parser
-(``native/fastxio.c`` via ``native.parse_fastq_bytes``) exists for
-callers that want whole-buffer parsing into int8 arenas, and the C
+module is the always-available Python implementation and the spec of
+the C parser the consensus run streams plain FASTQ through
+(``native_src/fastxio.c`` via ``native.read_fastq_encoded``); the C
 WRITER (``native.format_fastx``) is what the pipeline's output path
 uses.  Semantics:
 
@@ -20,11 +20,32 @@ import gzip
 import io
 from typing import Iterator, NamedTuple, Optional
 
+import numpy as np
+
+from ..utils.seqs import encode, phred_to_array
+
 
 class FastxRecord(NamedTuple):
     name: str
     seq: str
     qual: Optional[str]  # None for FASTA
+
+
+class Read(NamedTuple):
+    """A read as the consensus run holds it: base codes as
+    ``utils.seqs.encode`` gives them, phred values as ``phred_to_array``
+    gives them (30 for FASTA), and the length."""
+    name: str
+    codes: np.ndarray   # int8
+    quals: np.ndarray   # int8
+    length: int
+
+
+def as_read(rec: FastxRecord) -> Read:
+    codes = encode(rec.seq)
+    quals = (phred_to_array(rec.qual) if rec.qual is not None
+             else np.full(len(codes), 30, dtype=np.int8))
+    return Read(rec.name, codes, quals, len(codes))
 
 
 def open_maybe_gzip(path: str):

@@ -129,12 +129,10 @@ def get_lib():
         ]
     except AttributeError:  # stale .so without the formatter symbol
         pass
-    lib.c3_parse_fastq.restype = i64
-    lib.c3_parse_fastq.argtypes = [u8p, i64, i8p, i8p, i64, i64p, i64p, i64]
-    lib.c3_parse_fasta.restype = i64
-    lib.c3_parse_fasta.argtypes = [u8p, i64, i8p, i64, i64p, i64p, i64]
-    lib.c3_decode.restype = None
-    lib.c3_decode.argtypes = [i8p, i64, u8p]
+    lib.c3_fastq_read.restype = i64
+    lib.c3_fastq_read.argtypes = [
+        i32, u8p, i64, i64p, i8p, i8p, i64, i64p, i64p, i64, u8p, i64p,
+    ]
     try:
         lib.c3_ops_records_batch.restype = None
         lib.c3_ops_records_batch.argtypes = [
@@ -550,31 +548,73 @@ def format_fastx(names: list, seqs: list, quals=None) -> "str | None":
     return out[:w].tobytes().decode("utf-8")
 
 
-def parse_fastq_bytes(data: bytes):
-    """Parse a FASTQ buffer -> (names list[str], seq_arena int8,
-    qual_arena int8, offsets int64).  None if unavailable."""
+FASTQ_CHUNK = 8 << 20    # bytes of the input a c3_fastq_read call holds
+FASTQ_RECORDS = 4096     # records one call parses at most
+
+
+def read_fastq_encoded(path: str, start_offset: int = 0,
+                       chunk: int = FASTQ_CHUNK,
+                       records: int = FASTQ_RECORDS):
+    """Plain-FASTQ streaming in C: yields ``(Read, offset_after_record)``
+    for the records ``io.fastx.read_fastq_offsets(path, start_offset)``
+    yields, already encoded, and raises what it raises at the same
+    record (that parser re-reads the malformed record to say how).  Each
+    ``c3_fastq_read`` call reads up to ``chunk`` bytes of the file into
+    one reused buffer (grown for a longer record) and parses and encodes
+    every whole record in it, the GIL released: a group of reads gives
+    the GIL away a few times instead of at every line.  Needs the
+    library."""
+    from .io.fastx import Read, read_fastq_offsets
     lib = get_lib()
-    if lib is None:
-        return None
-    buf = np.frombuffer(data, dtype=np.uint8)
-    n = len(buf)
-    arena_cap = n
-    rec_cap = max(16, n // 64)
-    while True:
-        seq_arena = np.empty(arena_cap, dtype=np.int8)
-        qual_arena = np.empty(arena_cap, dtype=np.int8)
-        name_span = np.empty(2 * rec_cap, dtype=np.int64)
-        offs = np.empty(rec_cap + 1, dtype=np.int64)
-        r = lib.c3_parse_fastq(buf, n, seq_arena, qual_arena, arena_cap,
-                               name_span, offs, rec_cap)
-        if r == -2:
-            rec_cap *= 4
-            continue
-        if r < 0:
-            raise ValueError("malformed FASTQ")
-        names = [data[name_span[2 * i]:name_span[2 * i + 1]].decode("ascii")
-                 for i in range(r)]
-        return names, seq_arena, qual_arena, offs[:r + 1]
+    buf = np.empty(chunk, dtype=np.uint8)
+    names_s = np.empty(chunk + records, dtype=np.uint8)
+    io = np.zeros(3, dtype=np.int64)      # parsed to, held, file ended
+    status = np.zeros(4, dtype=np.int64)  # dropped, why, name bytes, errno
+    arena_off = np.empty(records + 1, dtype=np.int64)
+    ends = np.empty(records, dtype=np.int64)
+    base = start_offset                   # file offset of buf[0]
+    with open(path, "rb", buffering=0) as fh:
+        fh.seek(start_offset)
+        while True:
+            cap = len(buf) // 2 + 1
+            codes = np.empty(cap, dtype=np.int8)
+            quals = np.empty(cap, dtype=np.int8)
+            r = lib.c3_fastq_read(fh.fileno(), buf, len(buf), io, codes,
+                                  quals, cap, arena_off, ends, records,
+                                  names_s, status)
+            dropped, why, nb, err = status.tolist()
+            if r == -2:
+                raise OSError(err, os.strerror(err), path)
+            if r < 0:
+                raise RuntimeError("c3_fastq_read: arena overflow")
+            stop, held, eof = io.tolist()
+            base += dropped
+            offs = arena_off[:r + 1].tolist()
+            # the storage of the bases parsed, no more (a shrink in place)
+            codes.resize(offs[-1], refcheck=False)
+            quals.resize(offs[-1], refcheck=False)
+            names = names_s[:nb].tobytes().decode("ascii").split("\n")
+            # each read an array of its own over the chunk's storage (its
+            # base a memoryview, not the chunk's array), so a subread cut
+            # from it has the read's array as its base, as encode()'s had
+            cmv, qmv = memoryview(codes), memoryview(quals)
+            for i, end in enumerate(ends[:r].tolist()):
+                a, b = offs[i], offs[i + 1]
+                yield Read(names[i], np.frombuffer(cmv[a:b], dtype=np.int8),
+                           np.frombuffer(qmv[a:b], dtype=np.int8), b - a), \
+                    base + end
+            if why == 1:
+                next(read_fastq_offsets(path, base + stop), None)
+                raise ValueError(f"{path}: malformed FASTQ record at "
+                                 f"byte {base + stop}")
+            if why == 0 and eof:
+                return
+            if why == 0 and stop == 0 and held == len(buf):
+                # one record longer than the buffer
+                grown = np.empty(2 * len(buf), dtype=np.uint8)
+                grown[:held] = buf
+                buf = grown
+                names_s = np.empty(len(buf) + records, dtype=np.uint8)
 
 
 # ---------------- scalar-C DP (baseline-bias probe) ----------------

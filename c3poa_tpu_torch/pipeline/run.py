@@ -32,7 +32,6 @@ import gzip
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator
 
 import numpy as np
 
@@ -44,7 +43,7 @@ from ..io.fastx import read_fastx
 from ..utils import prof
 from ..utils.mem import RssRestartNeeded, rss_mb
 from ..utils.progress import Progress
-from ..utils.seqs import decode, encode, phred_to_array, revcomp_encoded
+from ..utils.seqs import decode, encode, revcomp_encoded
 from .backend import Combo, NumpyBackend
 from .segment import segment_read
 
@@ -155,39 +154,28 @@ class _SplintWriters:
             subs.close()
 
 
-def _read_groups(path: str, lencutoff: int, group_size: int,
-                 stats: "PipelineStats") -> Iterator[list]:
-    """Yields read groups; counts length-filtered reads into stats
-    (mirrors the streaming group assembly of C3POa.py:238-254)."""
-    group: list = []
-    for rec in read_fastx(path):
-        if len(rec.seq) < lencutoff:
-            stats.short_reads += 1
-            continue
-        group.append(rec)
-        if len(group) == group_size:
-            yield group
-            group = []
-    if group:
-        yield group
-
-
 class _GroupStream:
     """Group streaming with seek-resume for plain FASTQ inputs.
 
-    Iterating yields 1-based ``(gi, group)``.  For uncompressed FASTQ
-    the stream records, per group, the byte offset after its last read
-    and the short-read count at that moment; ``checkpoint_fields(gi)``
-    hands those to the resume manifest so the NEXT session seeks
-    straight to group gi+1 instead of re-parsing gigabytes of completed
-    input (the dominant restart cost measured in the 1M-read soak's
-    --rss-restart-mb run, BENCHMARKS.md).  Gzip/FASTA inputs fall back
-    to full re-streaming with count-based skipping, byte-identically.
+    Iterating yields 1-based ``(gi, group)``, a group being a list of
+    ``io.fastx.Read``.  A plain FASTQ input is parsed and encoded by the
+    native library a chunk of bytes per GIL-released call
+    (``native.read_fastq_encoded``; each such group counts in
+    ``stream_native_groups``); gzip and FASTA inputs, or no library, take
+    the Python parse, encoded read by read.  For uncompressed FASTQ the
+    stream records, per group, the byte offset after its last read and
+    the short-read count at that moment; ``checkpoint_fields(gi)`` hands
+    those to the resume manifest so the NEXT session seeks straight to
+    group gi+1 instead of re-parsing gigabytes of completed input (the
+    dominant restart cost measured in the 1M-read soak's --rss-restart-mb
+    run, BENCHMARKS.md).  Gzip/FASTA inputs fall back to full
+    re-streaming with count-based skipping, byte-identically.
     """
 
     def __init__(self, path: str, cfg: "PipelineConfig",
                  filter_stats: "PipelineStats", skip_groups: int,
                  manifest: dict | None):
+        from .. import native
         from ..io.fastx import is_plain_fastq
         self.path = path
         self.cfg = cfg
@@ -195,6 +183,7 @@ class _GroupStream:
         self.skip_groups = skip_groups
         self._marks: dict = {}   # gi -> (offset_after, short_reads_seen)
         self.seekable = is_plain_fastq(path)
+        self.native = self.seekable and native.available()
         self._start_offset = 0
         self.start_gi = 0
         if (self.seekable and skip_groups and manifest
@@ -203,31 +192,40 @@ class _GroupStream:
             self.start_gi = skip_groups
             filter_stats.short_reads = manifest.get("short_reads_seen", 0)
 
+    def _records(self):
+        """``(Read, offset after it)`` in file order; the offset is None
+        where the input cannot be seeked."""
+        from .. import native
+        from ..io import fastx
+        if self.native:
+            return native.read_fastq_encoded(self.path, self._start_offset)
+        if self.seekable:
+            return ((fastx.as_read(rec), off) for rec, off in
+                    fastx.read_fastq_offsets(self.path, self._start_offset))
+        return ((fastx.as_read(rec), None) for rec in read_fastx(self.path))
+
     def __iter__(self):
         gi = self.start_gi
-        if not self.seekable:
-            for group in _read_groups(self.path, self.cfg.lencutoff,
-                                      self.cfg.group_size,
-                                      self.filter_stats):
-                gi += 1
-                yield gi, group
-            return
-        from ..io.fastx import read_fastq_offsets
         group: list = []
-        for rec, off in read_fastq_offsets(self.path, self._start_offset):
-            if len(rec.seq) < self.cfg.lencutoff:
+        for rec, off in self._records():
+            if rec.length < self.cfg.lencutoff:
                 self.filter_stats.short_reads += 1
                 continue
             group.append(rec)
             if len(group) == self.cfg.group_size:
                 gi += 1
-                self._marks[gi] = (off, self.filter_stats.short_reads)
+                self._mark(gi, off)
                 yield gi, group
                 group = []
         if group:
             gi += 1
-            self._marks[gi] = (None, self.filter_stats.short_reads)
+            self._mark(gi, None)
             yield gi, group
+
+    def _mark(self, gi: int, off) -> None:
+        self._marks[gi] = (off, self.filter_stats.short_reads)
+        if self.native:
+            prof.current.count("stream_native_groups")
 
     def checkpoint_fields(self, gi: int) -> dict:
         """Manifest fields for a checkpoint at group ``gi`` (pruning
@@ -570,11 +568,10 @@ def _wait_host(gi: int, fut):
 
 
 def _locate_group(group, combos, cfg: PipelineConfig, backend):
-    """Encode + locate (the part overlapped with the previous group's
-    consensus when the backend supports it)."""
-    enc = [encode(r.seq) for r in group]
-    quals = [phred_to_array(r.qual) if r.qual is not None
-             else np.full(len(r.seq), 30, dtype=np.int8) for r in group]
+    """Locate (the part overlapped with the previous group's consensus
+    when the backend supports it); the stream has encoded the reads."""
+    enc = [r.codes for r in group]
+    quals = [r.quals for r in group]
     with prof.current.stage("locate"):
         located = backend.locate_many(enc, combos, cfg.mdistcutoff)
     return enc, quals, located
@@ -760,7 +757,7 @@ def _finalize_group_inner(prep: dict, cfg: PipelineConfig, writers,
             continue
         qarr = quals[ri]
         avg_qual = round(float(np.sum(qarr.astype(np.int64))) / len(qarr), 2)
-        header = f"{rec.name}_{avg_qual}_{len(rec.seq)}_{repeats}_{len(cons)}"
+        header = f"{rec.name}_{avg_qual}_{rec.length}_{repeats}_{len(cons)}"
         if use_c:
             cn.append(header)
             cs.append(cons)

@@ -152,32 +152,84 @@ def _sessions(reads, splint, out, cfg, backend=None):
             continue
 
 
+def _spy_starts(monkeypatch) -> list:
+    """The offsets the group stream starts parsing the FASTQ at, by the
+    C parse (``native.read_fastq_encoded``) or, without the library, the
+    Python one (``io.fastx.read_fastq_offsets``)."""
+    import c3poa_tpu_torch.io.fastx as fastx
+    from c3poa_tpu_torch import native
+
+    starts = []
+    for mod, name in ((native, "read_fastq_encoded"),
+                      (fastx, "read_fastq_offsets")):
+        def spy(path, start_offset=0, _orig=getattr(mod, name)):
+            starts.append(start_offset)
+            return _orig(path, start_offset)
+        monkeypatch.setattr(mod, name, spy)
+    return starts
+
+
 def test_seek_resume_skips_completed_input(tmp_path, monkeypatch):
     """``test_resume_tools.py:201``: sessions after the first seek into
-    the FASTQ (the port's ``io.fastx.read_fastq_offsets`` starts
-    mid-file) and the output, ``c3poa.log`` included, is the
-    uninterrupted run's."""
-    import c3poa_tpu_torch.io.fastx as fastx
-
+    the FASTQ (the group stream's parse starts mid-file) and the output,
+    ``c3poa.log`` included, is the uninterrupted run's."""
     reads, splint = _inputs(tmp_path, 9, 13)
     clean = str(tmp_path / "clean")
     run_pipeline(reads, splint, clean,
                  PipelineConfig(group_size=3, lencutoff=100))
 
-    starts = []
-    orig = fastx.read_fastq_offsets
-
-    def spy(path, start_offset=0):
-        starts.append(start_offset)
-        return orig(path, start_offset)
-
-    monkeypatch.setattr(fastx, "read_fastq_offsets", spy)
+    starts = _spy_starts(monkeypatch)
     out = str(tmp_path / "restarted")
     sessions = _sessions(reads, splint, out,
                          PipelineConfig(group_size=3, lencutoff=100,
                                         resume=True, rss_restart_mb=1))
     assert sessions == 4  # a restart after each of the 3 groups
     assert starts[0] == 0 and all(s > 0 for s in starts[1:]), starts
+    assert _files(out) == _files(clean)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "cpu"])
+def test_seek_resume_from_c_parse_checkpoint(tmp_path, monkeypatch,
+                                             backend):
+    """The C parse writes each checkpoint's offset and later sessions seek
+    to it through the C parse; every session's groups come from it
+    (``stream_native_groups``), and the tree is the uninterrupted run's
+    byte for byte, on the numpy backend and ``TorchBackend("cpu")``."""
+    from c3poa_tpu_torch import native
+    if not native.available():
+        pytest.skip("native library not built")
+    reads, splint = _inputs(tmp_path, 11, 23)
+    be = _backend(backend)
+    clean = str(tmp_path / "clean")
+    run_pipeline(reads, splint, clean,
+                 PipelineConfig(group_size=4, lencutoff=100), be)
+
+    starts = _spy_starts(monkeypatch)
+    offsets, native_groups = [], []
+    orig = port_run._GroupStream.checkpoint_fields
+
+    def checkpoint_fields(self, gi):
+        fields = orig(self, gi)
+        offsets.append(fields.get("next_offset"))
+        native_groups.append(
+            port_run.prof.current.counts["stream_native_groups"])
+        return fields
+
+    monkeypatch.setattr(port_run._GroupStream, "checkpoint_fields",
+                        checkpoint_fields)
+    out = str(tmp_path / "restarted")
+    sessions = _sessions(reads, splint, out,
+                         PipelineConfig(group_size=4, lencutoff=100,
+                                        resume=True, rss_restart_mb=1), be)
+    assert sessions == 4  # a restart after each of the 3 groups
+    # the last group is partial: it stores no offset, so the session that
+    # finds every group done streams from the start and skips by count
+    assert starts == [0] + offsets[:2] + [0] and offsets[2] is None, \
+        (starts, offsets)
+    # at its checkpoint a session has streamed its group, and the deep
+    # pipeline (``TorchBackend``) up to two groups ahead of it
+    assert native_groups == ([1, 1, 1] if backend == "numpy"
+                             else [3, 2, 1])
     assert _files(out) == _files(clean)
 
 
