@@ -23,12 +23,25 @@ Rules reproduced exactly:
 
 Deviation (documented): records stream to the final files in input order
 instead of through post_tmp_* trees catted in glob order.
+
+Tracing (``utils/prof.py``; the reference has none): each run opens its
+own profiler and dumps it to ``.c3poa_post_stats.json`` in its output
+directory (a host's own directory under several processes; the merge
+never reads it).  Stages a group, on the calling thread: ``post_read``
+(the FASTA parse), ``post_encode``, ``adapter_hits`` (the backend call,
+its device wait included), ``post_demux`` (hit extraction, the rules,
+the index match and the record writes), ``post_checkpoint``.  Counters,
+the run's reads by outcome: ``post_reads`` = ``post_written`` +
+``post_no_adapter`` + ``post_wrong_order`` + ``post_no_direction``;
+``post_no_index`` counts the written reads filed under
+``no_index_found``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gzip
+import itertools
 import json
 import os
 from typing import NamedTuple
@@ -37,6 +50,7 @@ import numpy as np
 
 from ..io.fastx import read_fastx
 from ..ref.lev import sliding_min_distance
+from ..utils import prof
 from ..utils.mem import RssRestartNeeded, rss_mb
 from ..utils.progress import Progress
 from ..utils.seqs import encode, revcomp, revcomp_encoded
@@ -222,6 +236,7 @@ class PostprocessStats:
     no_adapter: int = 0       # failed the exactly-one-per-strand rule
     wrong_order: int = 0
     no_direction: int = 0
+    no_index: int = 0         # written under no_index_found
 
 
 def _process_read(name, sequence, hits, cfg, writers, idx_to_seq, seq_to_idx,
@@ -259,6 +274,7 @@ def _process_read(name, sequence, hits, cfg, writers, idx_to_seq, seq_to_idx,
             direction, idx_name, demux = "+", reverse_index, True
         if not demux:
             idx_name = "no_index_found"
+            stats.no_index += 1
 
     out, out3, out5 = writers.trio(idx_name)
 
@@ -283,6 +299,7 @@ def _process_read(name, sequence, hits, cfg, writers, idx_to_seq, seq_to_idx,
 
 
 MANIFEST = ".c3poa_post_progress.json"
+STATS = ".c3poa_post_stats.json"
 
 
 def _resume_key(input_fasta, adapter_fasta, index_fasta,
@@ -314,14 +331,17 @@ def _post_group_worker(payload):
 
 
 def _read_groups(path: str, group_size: int):
-    group: list = []
-    for rec in read_fastx(path):
-        group.append(rec)
-        if len(group) == group_size:
-            yield group
-            group = []
-    if group:
+    """Groups of ``group_size`` records, each one's parse timed as the
+    stage ``post_read`` under its group index."""
+    records = read_fastx(path)
+    gi = 0
+    while True:
+        with prof.current.stage("post_read", group=gi):
+            group = list(itertools.islice(records, group_size))
+        if not group:
+            return
         yield group
+        gi += 1
 
 
 def run_postprocess(input_fasta: str, out_path: str, adapter_fasta: str,
@@ -340,6 +360,7 @@ def run_postprocess(input_fasta: str, out_path: str, adapter_fasta: str,
     if backend is None:
         from .backend import NumpyBackend
         backend = NumpyBackend()
+    profiler = prof.reset()
 
     # multi-host: this host works under out/host_<h>/ on its round-robin
     # share of the groups (reference parallelizes postprocessing too,
@@ -389,6 +410,7 @@ def run_postprocess(input_fasta: str, out_path: str, adapter_fasta: str,
                     setattr(stats, f, v)
 
     writers = _Writers(out_path, cfg.compress, restore_sizes)
+    resumed = dataclasses.asdict(stats)
     progress = Progress("c3poa-postprocess")
 
     def mine(gi):
@@ -435,19 +457,26 @@ def run_postprocess(input_fasta: str, out_path: str, adapter_fasta: str,
                 for f, v in wstats.items():
                     setattr(stats, f, getattr(stats, f) + v)
                 progress.update(wstats["total"])
-                checkpoint(gi)
+                with prof.current.stage("post_checkpoint", group=gi):
+                    checkpoint(gi)
         else:
             for gi, group in enumerate(_read_groups(input_fasta,
                                                     cfg.group_size)):
                 if gi < skip_groups or not mine(gi):
                     continue
                 _process_group(group, combo_meta, combo_codes, cfg, backend,
-                               writers, idx_to_seq, seq_to_idx, stats)
+                               writers, idx_to_seq, seq_to_idx, stats, gi)
                 progress.update(len(group))
-                checkpoint(gi)
+                with prof.current.stage("post_checkpoint", group=gi):
+                    checkpoint(gi)
     finally:
         progress.close()
         writers.close()
+    # this run's reads by outcome (a resumed run's earlier ones left out)
+    for field, n in dataclasses.asdict(stats).items():
+        profiler.count("post_reads" if field == "total" else "post_" + field,
+                       n - resumed[field])
+    profiler.dump(os.path.join(out_path, STATS))
 
     if multihost:
         from ..parallel import dist
@@ -465,14 +494,17 @@ def run_postprocess(input_fasta: str, out_path: str, adapter_fasta: str,
 
 
 def _process_group(group, combo_meta, combo_codes, cfg, backend, writers,
-                   idx_to_seq, seq_to_idx, stats):
-    enc = [encode(r.seq) for r in group]
-    res = backend.adapter_hits(enc, combo_codes,
-                               [m[2] for m in combo_meta])
+                   idx_to_seq, seq_to_idx, stats, gi=None):
+    with prof.current.stage("post_encode", group=gi):
+        enc = [encode(r.seq) for r in group]
+    with prof.current.stage("adapter_hits", group=gi):
+        res = backend.adapter_hits(enc, combo_codes,
+                                   [m[2] for m in combo_meta])
     s1, j1, qe1, ts1, qs1, s2 = res
-    for b, rec in enumerate(group):
-        stats.total += 1
-        hits = extract_hits(combo_meta, s1[b], j1[b], qe1[b], ts1[b],
-                            qs1[b], s2[b], cfg.score_min)
-        _process_read(rec.name, rec.seq, hits, cfg, writers, idx_to_seq,
-                      seq_to_idx, stats)
+    with prof.current.stage("post_demux", group=gi):
+        for b, rec in enumerate(group):
+            stats.total += 1
+            hits = extract_hits(combo_meta, s1[b], j1[b], qe1[b], ts1[b],
+                                qs1[b], s2[b], cfg.score_min)
+            _process_read(rec.name, rec.seq, hits, cfg, writers,
+                          idx_to_seq, seq_to_idx, stats)

@@ -220,7 +220,9 @@ class TorchBackend:
         its own codes (``combo_lens`` is their length).  Reads go longest
         first through the adapter kernel (``kernels/adapters.py``), at
         most MAX_ADAPTER_BATCH a launch; reads over MAX_READ_LEN take
-        the exact host path."""
+        the exact host path.  Counts each launch's real cells (its reads'
+        columns times the combos' rows), padded cells (B x L x the combos'
+        rows) and read columns."""
         B, C = len(reads), len(combo_codes)
         outs = [np.zeros((B, C), dtype=np.int64) for _ in range(6)]
         if not B or not C:
@@ -233,22 +235,33 @@ class TorchBackend:
                                                dtype=np.int32))
         overlong = [i for i, r in enumerate(reads) if len(r) > MAX_READ_LEN]
         if overlong:
-            host = NumpyBackend().adapter_hits(
-                [reads[i] for i in overlong], combo_codes, combo_lens)
+            prof.current.count("adapter_host_reads", len(overlong))
+            with prof.current.stage("adapter_host"):
+                host = NumpyBackend().adapter_hits(
+                    [reads[i] for i in overlong], combo_codes, combo_lens)
             for k in range(6):
                 outs[k][overlong] = host[k]
+        rows = sum(len(c) for c in combo_codes)
         # dispatch every batch first, then materialize
         launches = []
-        for chunk, R, lens in self._read_batches(
-                reads, [i for i, r in enumerate(reads)
-                        if len(r) <= MAX_READ_LEN], C,
-                MAX_ADAPTER_BATCH):
-            launches.append((chunk, self.mesh.dispatch(
-                lambda dev, r, ln: adapter_hits(
-                    r, ln, A[dev], alens[dev],
-                    *NumpyBackend.ADAPTER_SCORING), R, lens)))
+        with prof.current.stage("adapter_dispatch"):
+            for chunk, R, lens in self._read_batches(
+                    reads, [i for i, r in enumerate(reads)
+                            if len(r) <= MAX_READ_LEN], C,
+                    MAX_ADAPTER_BATCH):
+                prof.current.count("adapter_launches")
+                prof.current.count("adapter_cells_padded", R.size * rows)
+                prof.current.count("adapter_cells_real",
+                                   int(lens.sum()) * rows)
+                prof.current.count("adapter_read_columns", int(lens.sum()))
+                launches.append((chunk, self.mesh.dispatch(
+                    lambda dev, r, ln: adapter_hits(
+                        r, ln, A[dev], alens[dev],
+                        *NumpyBackend.ADAPTER_SCORING), R, lens)))
         for chunk, res in launches:
-            for k, x in enumerate(self.mesh.gather(res)):
+            with prof.current.stage("adapter_wait"):
+                got = self.mesh.gather(res)
+            for k, x in enumerate(got):
                 outs[k][chunk] = x
         return outs
 
