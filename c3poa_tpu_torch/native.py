@@ -30,9 +30,9 @@ SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "build", "c3poa_tpu_torch", "native")
-# the sources and flags of native/Makefile
+# the sources and flags of native/Makefile; demux.c is the port's own
 SOURCES = ("traceback.c", "fastxio.c", "dpbench.c", "overlap.c", "align.c",
-           "poa.c")
+           "poa.c", "demux.c")
 CFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c99", "-Wall", "-Wextra",
           "-pthread", "-shared")
 # why the last build failed (None when it did not)
@@ -164,6 +164,16 @@ def get_lib():
             u8p, i64p, u8p, i64p, i32, i32p,
         ]
     except AttributeError:  # stale .so without the demux symbol
+        pass
+    try:
+        lib.c3_post_demux.restype = i64
+        lib.c3_post_demux.argtypes = [
+            i64, u8p, i64p, u8p, i64p, i32, i64p, i64p, i64p, i64p, i64p,
+            i64p, i8p, i64p, i32p, i32, i64, i32,
+            i32, u8p, i64p, i64p, i64p, i32p, i32, i32,
+            u8p, i8p, i32p, u8p, i64, i64p,
+        ]
+    except AttributeError:  # stale .so without the group demux symbol
         pass
     try:
         lib.c3_dp_score.restype = i64
@@ -474,6 +484,22 @@ def find_overlap_c(target: np.ndarray, query: np.ndarray, k: int = 15,
 _SLIDE_CACHE: dict = {}
 
 
+def _index_table(idx_seqs: tuple) -> tuple:
+    """The index file's sequences as the C index match takes them: the
+    joined bytes, their offsets, the prefix max of their lengths in file
+    order and the lengths (cached by the sequences)."""
+    cached = _SLIDE_CACHE.get(idx_seqs)
+    if cached is None:
+        blob = np.frombuffer("".join(idx_seqs).encode(), dtype=np.uint8)
+        lens = np.array([len(s) for s in idx_seqs], dtype=np.int64)
+        off = np.zeros(len(idx_seqs) + 1, dtype=np.int64)
+        np.cumsum(lens, out=off[1:])
+        maxpref = np.maximum.accumulate(lens)
+        cached = _SLIDE_CACHE[idx_seqs] = (np.ascontiguousarray(blob), off,
+                                           maxpref, lens)
+    return cached
+
+
 def sliding_min_dists_c(seq: str, idx_seqs: tuple) -> "np.ndarray | None":
     """C fast path: min sliding Levenshtein of every index against seq,
     with the reference match_index's window truncation — its
@@ -486,19 +512,7 @@ def sliding_min_dists_c(seq: str, idx_seqs: tuple) -> "np.ndarray | None":
     lib = get_lib()
     if lib is None or not hasattr(lib, "c3_sliding_min_dist_multi"):
         return None
-    key = idx_seqs
-    cached = _SLIDE_CACHE.get(key)
-    if cached is None:
-        blob = np.frombuffer("".join(idx_seqs).encode(), dtype=np.uint8)
-        off = np.zeros(len(idx_seqs) + 1, dtype=np.int64)
-        np.cumsum([len(s) for s in idx_seqs], out=off[1:])
-        # prefix max of index lengths, in file order
-        maxpref = np.maximum.accumulate(
-            np.array([len(s) for s in idx_seqs], dtype=np.int64))
-        lens = np.array([len(s) for s in idx_seqs], dtype=np.int64)
-        cached = _SLIDE_CACHE[key] = (np.ascontiguousarray(blob), off,
-                                      maxpref, lens)
-    blob, off, maxpref, lens = cached
+    blob, off, maxpref, lens = _index_table(idx_seqs)
     s = np.frombuffer(seq.encode(), dtype=np.uint8)
     # effective seq length per index: windows p <= n - maxpref[i]
     n_eff = np.ascontiguousarray(len(s) - maxpref + lens)
@@ -508,6 +522,57 @@ def sliding_min_dists_c(seq: str, idx_seqs: tuple) -> "np.ndarray | None":
     if (out < 0).any():  # an index wider than the C DP row
         return None
     return out
+
+
+def post_demux_c(names: list, seqs: list, hits, combos: tuple,
+                 score_min: int, flags: int, idx_seqs: tuple,
+                 dest_of_idx: np.ndarray, dest_noindex: int, n_dest: int,
+                 comp: np.ndarray):
+    """One C call demuxes a postprocess group (``native_src/demux.c``,
+    spec ``pipeline/postprocess.py``'s Python demux).  ``hits`` are the
+    adapter kernel's six (B, C) outputs; ``combos`` = (on the '+' strand
+    (int8), adapter lengths, adapter names as numbers, 5Prime_adapter's
+    number or -1); ``flags`` the TRIM = 1, UNDIRECTIONAL = 2 and
+    BARCODED = 4 bits of ``demux.c``.  Returns ``(outcome, chosen,
+    texts)``: each read's outcome code and index (or -1), and the bytes
+    of the 3 * ``n_dest`` + 2 destination files; None when the library
+    lacks the symbol, a sequence is not ASCII or an index is wider than
+    the C DP row (the caller runs the Python path)."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "c3_post_demux"):
+        return None
+    try:
+        seq_blob = "".join(seqs).encode("ascii")
+    except UnicodeEncodeError:
+        return None
+    name_bytes = [x.encode("utf-8") for x in names]
+    n = len(names)
+    name_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(x) for x in name_bytes], out=name_off[1:])
+    seq_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(x) for x in seqs], out=seq_off[1:])
+    s1, j1, qe1, ts1, qs1, s2 = (np.ascontiguousarray(h, dtype=np.int64)
+                                 for h in hits)
+    plus, lens, name_ids, five = combos
+    blob, off, maxpref, idx_lens = _index_table(idx_seqs)
+    # a written read's text: 3 records of at most name + 24 + its length
+    # bytes, a 10x record of name + 69, a mux row of name + 43
+    cap = 5 * (len(seq_blob) + int(name_off[-1])) + 200 * n + 64
+    out = np.empty(cap, dtype=np.uint8)
+    outcome = np.empty(n, dtype=np.int8)
+    chosen = np.empty(n, dtype=np.int32)
+    file_off = np.empty(3 * n_dest + 3, dtype=np.int64)
+    w = lib.c3_post_demux(
+        n, np.frombuffer(b"".join(name_bytes), dtype=np.uint8), name_off,
+        np.frombuffer(seq_blob, dtype=np.uint8), seq_off, s1.shape[1],
+        s1, j1, qe1, ts1, qs1, s2, plus, lens, name_ids, five, score_min,
+        flags, len(idx_seqs), blob, off, maxpref, idx_lens, dest_of_idx,
+        dest_noindex, n_dest, comp, outcome, chosen, out, cap, file_off)
+    if w < 0:
+        return None
+    texts = [out[a:b].tobytes() for a, b in zip(file_off[:-1],
+                                                  file_off[1:])]
+    return outcome, chosen, texts
 
 
 # ---------------- fastx ----------------

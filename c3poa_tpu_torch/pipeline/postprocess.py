@@ -30,11 +30,13 @@ directory (a host's own directory under several processes; the merge
 never reads it).  Stages a group, on the calling thread: ``post_read``
 (the FASTA parse), ``post_encode``, ``adapter_hits`` (the backend call,
 its device wait included), ``post_demux`` (hit extraction, the rules,
-the index match and the record writes), ``post_checkpoint``.  Counters,
-the run's reads by outcome: ``post_reads`` = ``post_written`` +
+the index match and the record writes: one C call a group and its
+texts' writes, or the Python path), ``post_checkpoint``.  Counters, the
+run's reads by outcome: ``post_reads`` = ``post_written`` +
 ``post_no_adapter`` + ``post_wrong_order`` + ``post_no_direction``;
 ``post_no_index`` counts the written reads filed under
-``no_index_found``.
+``no_index_found``; ``post_demux_native_groups`` the groups this process
+demuxed in C.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import dataclasses
 import gzip
 import itertools
 import json
+import math
 import os
 from typing import NamedTuple
 
@@ -53,7 +56,7 @@ from ..ref.lev import sliding_min_distance
 from ..utils import prof
 from ..utils.mem import RssRestartNeeded, rss_mb
 from ..utils.progress import Progress
-from ..utils.seqs import encode, revcomp, revcomp_encoded
+from ..utils.seqs import _COMP_CHAR, encode, revcomp, revcomp_encoded
 
 
 @dataclasses.dataclass
@@ -500,11 +503,90 @@ def _process_group(group, combo_meta, combo_codes, cfg, backend, writers,
     with prof.current.stage("adapter_hits", group=gi):
         res = backend.adapter_hits(enc, combo_codes,
                                    [m[2] for m in combo_meta])
-    s1, j1, qe1, ts1, qs1, s2 = res
     with prof.current.stage("post_demux", group=gi):
-        for b, rec in enumerate(group):
-            stats.total += 1
-            hits = extract_hits(combo_meta, s1[b], j1[b], qe1[b], ts1[b],
-                                qs1[b], s2[b], cfg.score_min)
-            _process_read(rec.name, rec.seq, hits, cfg, writers,
-                          idx_to_seq, seq_to_idx, stats)
+        if _demux(group, res, combo_meta, cfg, writers, idx_to_seq,
+                  seq_to_idx, stats):
+            prof.current.count("post_demux_native_groups")
+
+
+def _demux(group, hits, combo_meta, cfg, writers, idx_to_seq, seq_to_idx,
+           stats) -> bool:
+    """Demux a group from its adapter hits (the backend's six (B, C)
+    outputs): in one C call where it runs, else read by read in Python.
+    Returns whether the C call did it."""
+    if _demux_native(group, hits, combo_meta, cfg, writers, seq_to_idx,
+                     stats):
+        return True
+    _demux_python(group, hits, combo_meta, cfg, writers, idx_to_seq,
+                  seq_to_idx, stats)
+    return False
+
+
+def _demux_python(group, hits, combo_meta, cfg, writers, idx_to_seq,
+                  seq_to_idx, stats):
+    """The demux's spec, and its fallback: ``extract_hits`` and
+    ``_process_read`` read by read."""
+    s1, j1, qe1, ts1, qs1, s2 = hits
+    for b, rec in enumerate(group):
+        stats.total += 1
+        read_hits = extract_hits(combo_meta, s1[b], j1[b], qe1[b], ts1[b],
+                                 qs1[b], s2[b], cfg.score_min)
+        _process_read(rec.name, rec.seq, read_hits, cfg, writers,
+                      idx_to_seq, seq_to_idx, stats)
+
+
+def _demux_native(group, hits, combo_meta, cfg, writers, seq_to_idx,
+                  stats) -> bool:
+    """The group in one C call (``native.post_demux_c``), writing the
+    bytes ``_demux_python`` writes, file by file in input order.  False,
+    with nothing written, where it does not run: no library or symbol, a
+    sequence not ASCII, an index wider than the C DP row or an index
+    named '-' (``match_index``'s no-match)."""
+    if "-" in seq_to_idx.values():
+        return False
+    from .. import native
+    ids: dict = {}
+    combos = (np.array([m[1] == "+" for m in combo_meta], dtype=np.int8),
+              np.array([m[2] for m in combo_meta], dtype=np.int64),
+              np.array([ids.setdefault(m[0], len(ids)) for m in combo_meta],
+                       dtype=np.int32),
+              ids.get("5Prime_adapter", -1))
+    # destinations by subdir name: indexes sharing a name (or named
+    # no_index_found) share their files
+    if seq_to_idx:
+        subdirs = list(dict.fromkeys([*seq_to_idx.values(),
+                                      "no_index_found"]))
+        at = {x: d for d, x in enumerate(subdirs)}
+        dest_of = np.array([at[x] for x in seq_to_idx.values()],
+                           dtype=np.int32)
+        noindex = at["no_index_found"]
+    else:
+        subdirs, dest_of, noindex = [None], np.zeros(0, dtype=np.int32), 0
+    flags = bool(cfg.trim) | 2 * bool(cfg.undirectional) | \
+        4 * bool(cfg.barcoded)
+    # an integer score is > x exactly when it is > floor(x)
+    score_min = math.floor(cfg.score_min)
+    res = native.post_demux_c(
+        [r.name for r in group], [r.seq for r in group], hits, combos,
+        score_min, flags, tuple(seq_to_idx), dest_of, noindex,
+        len(subdirs), _COMP_CHAR)
+    if res is None:
+        return False
+    outcome, _chosen, texts = res
+    for d, subdir in enumerate(subdirs):
+        trio = texts[3 * d:3 * d + 3]
+        if trio[0]:
+            for fh, text in zip(writers.trio(subdir), trio):
+                fh.write(text.decode("utf-8"))
+    if texts[-2]:
+        writers.tenx().write(texts[-2].decode("utf-8"))
+    if texts[-1]:
+        writers.mux().write(texts[-1].decode("utf-8"))
+    n = np.bincount(outcome, minlength=5).tolist()
+    stats.total += len(group)
+    stats.written += n[0] + n[4]
+    stats.no_adapter += n[1]
+    stats.wrong_order += n[2]
+    stats.no_direction += n[3]
+    stats.no_index += n[4]
+    return True

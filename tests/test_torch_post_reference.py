@@ -206,6 +206,10 @@ def test_run_postprocess_records_equal_the_reference(tmp_path, source):
     files, outcomes = P.postprocess(list(zip(names, seqs)), ADAPTERS,
                                     indexes, trim=True)
     assert tree(os.path.join(d, "out")) == files
+    # every group took the C demux
+    with open(os.path.join(d, "out", postprocess.STATS)) as fh:
+        counters = json.load(fh)["counters"]
+    assert counters["post_demux_native_groups"] == -(-len(seqs) // 64)
     assert (stats.total, stats.written, stats.no_adapter) == \
         (len(seqs), outcomes["written"], outcomes["no_adapter"])
     assert outcomes["no_adapter"] >= 4 and \
@@ -247,6 +251,7 @@ def test_stats_file_stages_and_counters(tmp_path):
     assert set(st["threads"]) == {"MainThread"}
     c = st["counters"]
     assert c["post_reads"] == stats.total == 60
+    assert c["post_demux_native_groups"] == 4     # every group, in C
     assert c["post_reads"] == c["post_written"] + c["post_no_adapter"] + \
         c["post_wrong_order"] + c["post_no_direction"]
     assert c["post_written"] == stats.written and \
