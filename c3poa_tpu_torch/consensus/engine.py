@@ -7,18 +7,16 @@ TPU-native redesign of the reference's three-stage consensus
 
 For tandem-repeat subreads (near-identical sequences with independent
 errors) POA's graph stays near-linear, so the same computation is expressed
-as rounds of banded align-to-draft + column vote — which batches perfectly
+as banded align-to-draft + column vote — which batches perfectly
 on TPU (one aligner kernel launch covers thousands of subreads across many
 reads; the ``align_many`` hook is where the TPU kernel plugs in).
 
-Round structure mirrors the reference stages:
-- round 1 ("POA role"):  draft = length-medoid subread; align the core
-  subreads; vote.  r==1 short-circuits to the subread itself
-  (bin/determine_consensus.py:31-32); r==2 vote ties resolve by quality,
-  the analogue of the reference's pairwise merge (bin/consensus.py).
-- round 2 ("racon role"): align core + dangling subreads to the round-1
-  consensus; vote with quality mask qmin=5 (racon ``-q 5``,
-  bin/determine_consensus.py:92).
+One round plays both reference stages: draft = length-medoid subread;
+align the other core subreads and the dangling fragments to it; vote
+with quality mask qmin=5 (racon ``-q 5``, bin/determine_consensus.py:92).
+A lone subread without fragments short-circuits to itself
+(bin/determine_consensus.py:31-32); two full repeats with no fragment
+voter take the reference's pairwise merge (bin/consensus.py).
 
 Zero-repeat reads (single splint peak) splice the two dangling fragments
 around their overlap exactly like the reference
@@ -40,10 +38,11 @@ from .pairwise import pairwise_merge
 from .vote import SubreadAln, record_for_draft, vote_consensus
 
 # align_many(pairs, params) -> list[SubreadAln]
-# pairs: list of (query_codes, query_quals, draft_codes)
+# pairs: list of (query_codes, query_quals, target_codes[, band])
 AlignMany = Callable[[list, "ConsensusParams"], list]
 
 
+# c3poa_tpu/consensus/engine.py:54-77 differs: one band, one round
 @dataclasses.dataclass
 class ConsensusParams:
     match: int = 5
@@ -51,30 +50,7 @@ class ConsensusParams:
     gap_open: int = 4
     gap_ext: int = 2
     band: int = 128
-    # Fast band for CORE subread<->draft pairs (full-draft targets):
-    # these follow the length-interpolated diagonal tightly, and W=64
-    # measured 0 score/record divergences over 450 bench/stress-shaped
-    # pairs vs W=128 while costing half the forward cells.  Safety net:
-    # any fast-band pair whose traceback visits band-local column 0 or
-    # W-1 (the only geometry where a wider band could matter) is
-    # realigned at ``band`` — the escalation rule is part of the spec
-    # and identical in every backend, so outputs stay byte-identical
-    # across numpy/scan/pallas.  Dangling/windowed pairs always use
-    # ``band`` (anchored windows do not track the interpolated
-    # diagonal; W=64 measurably hurt them).  -1 = resolve from
-    # C3POA_FAST_BAND (default 0 = OFF).  Shipped OFF: the interleaved
-    # hardware A/B (tools/pipe_ab.py, 3 rounds) measured 0.921x — the
-    # Pallas forward is latency-bound per row block, so halving the
-    # band saves VPU work that was never the bottleneck, while the
-    # band-run chunking fragments ladder batches (BENCHMARKS.md).
-    fast_band: int = -1
     qmin: int = 5
-    # 1 = single vote of core + dangling subreads against the medoid draft
-    # (the racon shape: one polish pass against a backbone).  Measured more
-    # accurate than re-aligning to the round-1 consensus (a second round
-    # feeds the vote its own derived output — correlated, not independent,
-    # evidence) and half the alignment work.
-    rounds: int = 1
     # exact 2-row merge (reference bin/consensus.py) when a read has
     # exactly two voters: gap runs decided as a block by average quality
     # (see consensus/pairwise.py).  With >2 voters the column vote runs.
@@ -170,61 +146,31 @@ def _diverged_owner(others, poa_fallback: float) -> bool:
     return (acc / len(others)) < poa_fallback
 
 
-def resolve_fast_band(p: "ConsensusParams") -> int:
-    """Host-level fast-band resolution (see ConsensusParams.fast_band).
-    Returns the band to use for core full-draft pairs (p.band when the
-    feature is off or would not shrink the band)."""
-    import os
-    fb = p.fast_band
-    if fb < 0:
-        fb = int(os.environ.get("C3POA_FAST_BAND", "0"))
-    if fb <= 0 or fb >= p.band:
-        return p.band
-    return fb
-
-
 def _pair_band(pair, p: "ConsensusParams") -> int:
     return pair[3] if len(pair) > 3 else p.band
 
 
 def serial_align_many(pairs, p: ConsensusParams) -> list[SubreadAln]:
-    """CPU aligner (the TPU backend substitutes a batched device one).
+    """CPU aligner (the device backend substitutes a batched one).
 
     Hot path: the scalar-C banded aligner (native/align.c via
     native.align_and_trace_c), bit-identical to the numpy spec and ~100x
     faster — this is what makes the CPU backend (and therefore the
     recorded proxy baseline, bench.py) reference-C-grade rather than a
-    numpy strawman (round-2 verdict).  C3POA_CPU_C_ALIGN=0 or a missing
-    native library falls back to the numpy rows of ref/banded.py.
+    numpy strawman (round-2 verdict).  A missing native library falls
+    back to the numpy rows of ref/banded.py.
 
-    Pairs may carry a 4th element: the per-pair band (fast-band core
-    pairs).  A fast-band pair whose path touches the band edge is
-    realigned at p.band — the same escalation rule the device backends
-    apply, so every backend emits identical records."""
-    import os
-    use_c = os.environ.get("C3POA_CPU_C_ALIGN", "1") != "0"
+    Pairs may carry a 4th element: the pair's band (else p.band)."""
+    # c3poa_tpu/consensus/engine.py:182-222 differs: each pair aligns
+    # once, at its band, through C wherever the library loads
     out = []
     for pair in pairs:
         query, qual, draft = pair[0], pair[1], pair[2]
-        band = _pair_band(pair, p)
-        while True:
-            rec = edge = None
-            if use_c:
-                got = native.align_and_trace_c(
-                    query, draft, match=p.match, mismatch=p.mismatch,
-                    gap_open=p.gap_open, gap_ext=p.gap_ext, band=band,
-                    with_edge=True)
-                if got is not None:
-                    rec, edge = got
-            if rec is None:
-                rec, edge = banded.align_and_trace(
-                    query, draft, match=p.match, mismatch=p.mismatch,
-                    gap_open=p.gap_open, gap_ext=p.gap_ext, band=band,
-                    with_edge=True)
-            if edge and band < p.band:
-                band = p.band       # escalate: path touched the edge
-                continue
-            break
+        kw = dict(match=p.match, mismatch=p.mismatch, gap_open=p.gap_open,
+                  gap_ext=p.gap_ext, band=_pair_band(pair, p))
+        rec = native.align_and_trace_c(query, draft, **kw)
+        if rec is None:
+            rec = banded.align_and_trace(query, draft, **kw)
         out.append(SubreadAln(rec, np.asarray(query, dtype=np.int8),
                               np.asarray(qual, dtype=np.int8)))
     return out
@@ -266,7 +212,7 @@ def consensus_many(jobs: Sequence[ConsensusJob],
                    align_many: AlignMany | None = None) -> list:
     """Batched consensus across many reads.
 
-    Each round gathers every (subread, draft) pair across all jobs into one
+    The round gathers every (subread, draft) pair across all jobs into one
     ``align_many`` call — the unit of TPU batching — then votes per job.
     Returns a list of (consensus_codes, consensus_quals) per job.
     """
@@ -286,13 +232,15 @@ def consensus_build_pairs(jobs: Sequence[ConsensusJob],
     cons: list = [None] * n
     cons_q: list = [None] * n
 
-    # ---- round 1: POA role over core subreads ----
-    # With rounds == 1 this is also the racon role: dangling fragments join
-    # the single vote against the medoid draft (racon itself polishes
-    # exactly once against its backbone, bin/determine_consensus.py:92).
+    # One vote of core subreads and dangling fragments against the medoid
+    # draft: the POA role and the racon role at once (racon itself
+    # polishes exactly once against its backbone,
+    # bin/determine_consensus.py:92).  Measured more accurate than
+    # re-aligning to a first consensus (a second round feeds the vote its
+    # own derived output — correlated, not independent, evidence) and
+    # half the alignment work.
+    # c3poa_tpu/consensus/engine.py:281-317 differs: this single round only
     from ..utils import prof
-    single_round = p.rounds == 1
-    fast_band = resolve_fast_band(p)   # resolved once per group
     pairs, meta = [], []  # meta: (owner, window_offset, full_nt)
     _t_pairs = prof.current.stage("pairs_build")
     _t_pairs.__enter__()
@@ -303,24 +251,21 @@ def consensus_build_pairs(jobs: Sequence[ConsensusJob],
             cons_q[ji] = np.zeros(0, dtype=np.int8)
             continue
         di = pick_draft(job.subreads)
-        if r == 1 and not (single_round and job.dangling):
+        if r == 1 and not job.dangling:
             cons[ji] = np.asarray(job.subreads[0], dtype=np.int8)
             cons_q[ji] = np.asarray(job.sub_quals[0], dtype=np.int8)
             continue
         draft = np.asarray(job.subreads[di], dtype=np.int8)
         members = [(job.subreads[i], job.sub_quals[i], False)
                    for i in range(r) if i != di]
-        if single_round:
-            members += [(c, q, True) for c, q in
-                        zip(job.dangling, job.dangling_quals)]
+        members += [(c, q, True) for c, q in
+                    zip(job.dangling, job.dangling_quals)]
         for codes, quals, is_dangling in members:
             win = _window_pair(codes, draft, p, is_dangling)
             if win is None:
                 continue
             target, offset = win
-            band = fast_band if (not is_dangling and
-                                 offset == 0) else p.band
-            pairs.append((codes, quals, target, band))
+            pairs.append((codes, quals, target, p.band))
             meta.append((ji, offset, len(draft)))
         cons[ji] = ("draft", di)  # placeholder until vote
     _t_pairs.__exit__(None, None, None)
@@ -330,7 +275,7 @@ def consensus_build_pairs(jobs: Sequence[ConsensusJob],
 
 def consensus_align(state0: dict, align_many: AlignMany | None = None
                     ) -> dict:
-    """Device half: the round-1 batched alignment over the pair list
+    """Device half: the batched alignment over the pair list
     from ``consensus_build_pairs``; finished by ``consensus_finalize``."""
     align_many = align_many or serial_align_many
     from ..utils import prof
@@ -355,8 +300,7 @@ def consensus_align(state0: dict, align_many: AlignMany | None = None
             poa_futures[ji] = _poa_pool().submit(
                 _poa_read_span, prof.current, prof.current_group(),
                 job.subreads, job.sub_quals)
-    return {"jobs": state0["jobs"], "p": state0["p"],
-            "align_many": align_many, "n": state0["n"],
+    return {"jobs": state0["jobs"], "p": state0["p"], "n": state0["n"],
             "cons": state0["cons"], "cons_q": state0["cons_q"],
             "by_owner": by_owner, "poa_futures": poa_futures}
 
@@ -365,17 +309,16 @@ def consensus_prepare(jobs: Sequence[ConsensusJob],
                       p: ConsensusParams | None = None,
                       align_many: AlignMany | None = None) -> dict:
     """Device-facing half of ``consensus_many``: pair building + the
-    round-1 batched alignment.  The returned state is finished by
+    batched alignment.  The returned state is finished by
     ``consensus_finalize`` (host votes) — the split lets the pipelined
     runner overlap group g+1's device alignment with group g's votes."""
     return consensus_align(consensus_build_pairs(jobs, p), align_many)
 
 
 def consensus_finalize(state: dict) -> list:
-    """Host half of ``consensus_many``: per-read votes + later rounds."""
+    """Host half of ``consensus_many``: per-read votes."""
     jobs = state["jobs"]
     p = state["p"]
-    align_many = state["align_many"]
     n = state["n"]
     cons = state["cons"]
     cons_q = state["cons_q"]
@@ -442,19 +385,16 @@ def consensus_finalize(state: dict) -> list:
             res = native.vote_jobs_c(
                 [by_owner.get(ji, []) for ji in batch_jis],
                 drafts, draft_qs, qmin=p.qmin)
-            if res is None:
-                batch_jis = []
-            else:
-                for ji, r in zip(batch_jis, res):
-                    cons[ji], cons_q[ji] = r
+            for ji, r in zip(batch_jis, res):
+                cons[ji], cons_q[ji] = r
         done = set(batch_jis)
         left = [ji for ji in pending_votes if ji not in done]
         if len(left) > 16 and _native_available():
-            # no-batch fallback (or many pairwise jobs): the C vote
-            # releases the GIL, so a small pool still spreads per-job
-            # votes over cores.  The pool persists across groups so the
-            # per-thread grow-only vote arenas (native._VOTE_TLS) stay
-            # warm instead of re-paying first-touch page faults.
+            # no batch (or many pairwise jobs): the C vote releases the
+            # GIL, so a small pool still spreads per-job votes over
+            # cores.  The pool persists across groups so the per-thread
+            # grow-only vote arenas (native._VOTE_TLS) stay warm instead
+            # of re-paying first-touch page faults.
             list(_vote_pool().map(vote_job, left))
         else:
             for ji in left:
@@ -477,38 +417,7 @@ def consensus_finalize(state: dict) -> list:
                 declined += bool(dec)
         if declined:
             prof.current.count("poa_native_declined", declined)
-
-    # ---- rounds 2..R: racon role over core + dangling ----
-    for _ in range(p.rounds - 1):
-        pairs, meta = [], []  # meta: (owner, window_offset, full_nt)
-        for ji, job in enumerate(jobs):
-            if len(cons[ji]) == 0 or len(job.subreads) == 0:
-                continue
-            draft = cons[ji]
-            members = [(c, q, False) for c, q in
-                       zip(job.subreads, job.sub_quals)] + \
-                      [(c, q, True) for c, q in
-                       zip(job.dangling, job.dangling_quals)]
-            for codes, quals, is_dangling in members:
-                win = _window_pair(codes, draft, p, is_dangling)
-                if win is None:
-                    continue
-                target, offset = win
-                pairs.append((codes, quals, target))
-                meta.append((ji, offset, len(draft)))
-        if not pairs:
-            break
-        alns = align_many(pairs, p)
-        by_owner: dict[int, list] = {}
-        for a, (ji, offset, full_nt) in zip(alns, meta):
-            if offset != 0 or len(a.rec.cover) != full_nt:
-                a = SubreadAln(banded.embed_record(a.rec, offset, full_nt),
-                               a.query, a.qual)
-            by_owner.setdefault(ji, []).append(a)
-        for ji in list(by_owner):
-            voters = [record_for_draft(cons[ji], cons_q[ji])] + by_owner[ji]
-            cons[ji], cons_q[ji] = vote_consensus(
-                len(cons[ji]), voters, qmin=p.qmin)
+    # c3poa_tpu/consensus/engine.py:472-503 differs: no rounds 2..R
     return list(zip(cons, cons_q))
 
 

@@ -79,16 +79,22 @@ def _find_lib():
 
 
 def get_lib():
+    """The library, or None where it is absent (no gcc, a failed build or
+    a file the loader refuses; the Python paths then run).  A library
+    that loads was built from this package's own sources (``lib_path``),
+    so it has every symbol bound here: a missing one is a build fault and
+    raises, at every call."""
+    # c3poa_tpu/native.py:57-170 differs: no symbol is optional
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
-    _TRIED = True
     path = _find_lib()
-    if path is None:
-        return None
     try:
-        lib = ctypes.CDLL(path)
+        lib = None if path is None else ctypes.CDLL(path)
     except OSError:
+        lib = None
+    if lib is None:
+        _TRIED = True
         return None
 
     i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
@@ -102,12 +108,6 @@ def get_lib():
         u8p, i32, i32, i8p, i32, i32, i32,
         i8p, i8p, i32p, i32p, i32p,
     ]
-    try:
-        lib.c3_traceback_edge.restype = i32
-        lib.c3_traceback_edge.argtypes = \
-            lib.c3_traceback.argtypes + [ctypes.POINTER(i32)]
-    except AttributeError:  # stale .so without the edge symbol
-        pass
     lib.c3_normalize.restype = None
     lib.c3_normalize.argtypes = [i8p, i8p, i32, i8p, i8p, i32p, i32p, i32p]
     lib.c3_ops_record.restype = i32
@@ -122,83 +122,56 @@ def get_lib():
         i32, i32, i8p, i8p, i32p, i32p, i32p, i32p,
         i8p, i8p, i64p, i32, i8p, i8p, i32,
     ]
-    try:
-        lib.c3_format_fastx.restype = i64
-        lib.c3_format_fastx.argtypes = [
-            i32, u8p, i64p, i8p, i64p, i8p, i32, u8p, i64,
-        ]
-    except AttributeError:  # stale .so without the formatter symbol
-        pass
+    lib.c3_format_fastx.restype = i64
+    lib.c3_format_fastx.argtypes = [
+        i32, u8p, i64p, i8p, i64p, i8p, i32, u8p, i64,
+    ]
     lib.c3_fastq_read.restype = i64
     lib.c3_fastq_read.argtypes = [
         i32, u8p, i64, i64p, i8p, i8p, i64, i64p, i64p, i64, u8p, i64p,
     ]
-    try:
-        lib.c3_ops_records_batch.restype = None
-        lib.c3_ops_records_batch.argtypes = [
-            u8p, i64, i32, i8p, i64p, i8p, i64p, i32p,
-            i8p, i8p, i32p, i32p, i32p, i64p, i64p, i32p, i32,
-        ]
-    except AttributeError:
-        pass
-    try:
-        lib.c3_vote_jobs.restype = None
-        lib.c3_vote_jobs.argtypes = [
-            i32, i64p, i64p, i64p, i64p, i64p,
-            i8p, i8p, i32p, i32p, i32p, i32p,
-            i8p, i8p, i8p, i8p, i32,
-            i8p, i8p, i32p, i32,
-        ]
-    except AttributeError:  # stale .so without the batched vote symbol
-        pass
-    try:
-        lib.c3_find_overlap.restype = i32
-        lib.c3_find_overlap.argtypes = [
-            i8p, i64, i8p, i64, i32, i32, i32, i64p,
-        ]
-    except AttributeError:  # stale .so without the overlap symbol
-        pass
-    try:
-        lib.c3_sliding_min_dist_multi.restype = None
-        lib.c3_sliding_min_dist_multi.argtypes = [
-            u8p, i64p, u8p, i64p, i32, i32p,
-        ]
-    except AttributeError:  # stale .so without the demux symbol
-        pass
-    try:
-        lib.c3_post_demux.restype = i64
-        lib.c3_post_demux.argtypes = [
-            i64, u8p, i64p, u8p, i64p, i32, i64p, i64p, i64p, i64p, i64p,
-            i64p, i8p, i64p, i32p, i32, i64, i32,
-            i32, u8p, i64p, i64p, i64p, i32p, i32, i32,
-            u8p, i8p, i32p, u8p, i64, i64p,
-        ]
-    except AttributeError:  # stale .so without the group demux symbol
-        pass
-    try:
-        lib.c3_dp_score.restype = i64
-        lib.c3_dp_score.argtypes = [
-            i8p, i64, i8p, i64, i64, i64, i64, i64, i64,
-            i64p, i64p, i64p, i64p, i64p,
-        ]
-    except AttributeError:  # stale .so without the bench symbol
-        pass
-    try:
-        lib.c3_align_moves.restype = i64
-        lib.c3_align_moves.argtypes = [
-            i8p, i32, i8p, i32, i64, i64, i64, i64, i32,
-            u8p, i64p, ctypes.POINTER(i32),
-        ]
-    except AttributeError:  # stale .so without the CPU aligner symbol
-        pass
-    try:
-        lib.c3_poa_consensus.restype = i64
-        lib.c3_poa_consensus.argtypes = [
-            i8p, i8p, i64p, i32, i64, i64, i64, i64, i8p, i8p, i64,
-        ]
-    except AttributeError:  # stale .so without the POA symbol
-        pass
-    _LIB = lib
+    lib.c3_ops_records_batch.restype = None
+    lib.c3_ops_records_batch.argtypes = [
+        u8p, i64, i32, i8p, i64p, i8p, i64p, i32p,
+        i8p, i8p, i32p, i32p, i32p, i64p, i64p, i32p, i32,
+    ]
+    lib.c3_vote_jobs.restype = None
+    lib.c3_vote_jobs.argtypes = [
+        i32, i64p, i64p, i64p, i64p, i64p,
+        i8p, i8p, i32p, i32p, i32p, i32p,
+        i8p, i8p, i8p, i8p, i32,
+        i8p, i8p, i32p, i32,
+    ]
+    lib.c3_find_overlap.restype = i32
+    lib.c3_find_overlap.argtypes = [
+        i8p, i64, i8p, i64, i32, i32, i32, i64p,
+    ]
+    lib.c3_sliding_min_dist_multi.restype = None
+    lib.c3_sliding_min_dist_multi.argtypes = [
+        u8p, i64p, u8p, i64p, i32, i32p,
+    ]
+    lib.c3_post_demux.restype = i64
+    lib.c3_post_demux.argtypes = [
+        i64, u8p, i64p, u8p, i64p, i32, i64p, i64p, i64p, i64p, i64p,
+        i64p, i8p, i64p, i32p, i32, i64, i32,
+        i32, u8p, i64p, i64p, i64p, i32p, i32, i32,
+        u8p, i8p, i32p, u8p, i64, i64p,
+    ]
+    lib.c3_dp_score.restype = i64
+    lib.c3_dp_score.argtypes = [
+        i8p, i64, i8p, i64, i64, i64, i64, i64, i64,
+        i64p, i64p, i64p, i64p, i64p,
+    ]
+    lib.c3_align_moves.restype = i64
+    lib.c3_align_moves.argtypes = [
+        i8p, i32, i8p, i32, i64, i64, i64, i64, i32,
+        u8p, i64p, ctypes.POINTER(i32),
+    ]
+    lib.c3_poa_consensus.restype = i64
+    lib.c3_poa_consensus.argtypes = [
+        i8p, i8p, i64p, i32, i64, i64, i64, i64, i8p, i8p, i64,
+    ]
+    _LIB, _TRIED = lib, True
     return _LIB
 
 
@@ -343,12 +316,12 @@ def vote_jobs_c(job_voters, drafts, draft_quals, qmin: int = 5,
     the draft, which is passed separately via drafts/draft_quals and
     participates as the implicit extra voter (record_for_draft
     semantics).  Returns a list of (codes, quals) per job, or None when
-    the library/symbol is unavailable.  Per-job buffer overflows
+    the library is absent.  Per-job buffer overflows
     (consensus > 2*nt + 64, pathological) are re-voted through the
     single-job path automatically.
     """
     lib = get_lib()
-    if lib is None or not hasattr(lib, "c3_vote_jobs"):
+    if lib is None:
         return None
     n_jobs = len(job_voters)
     if n_jobs == 0:
@@ -431,11 +404,11 @@ def poa_consensus_c(seqs, quals, match=5, mismatch=-4, gap_open=4,
                     gap_ext=2):
     """GIL-released scalar-C twin of ref.poa.poa_consensus (native/poa.c),
     bit-identical tie-breaks.  Returns (codes, quals) or None when the
-    library/symbol is unavailable or the C side declines (DP cell cap /
+    library is absent or the C side declines (DP cell cap /
     pred-count cap / allocation failure) — callers fall back to the
     numpy spec path."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "c3_poa_consensus"):
+    if lib is None:
         return None
     n = len(seqs)
     if n == 0:
@@ -466,10 +439,10 @@ def find_overlap_c(target: np.ndarray, query: np.ndarray, k: int = 15,
                    band: int = 64, min_matches: int = 3):
     """C fast path for consensus.overlap.find_overlap (exact same
     algorithm and results).  Returns (r_st, r_en, q_st, q_en), None when
-    no overlap is found, or the string "unavailable" when the library
-    lacks the symbol (caller runs the numpy path)."""
+    no overlap is found, or the string "unavailable" when the library is
+    absent or the C side declines (caller runs the numpy path)."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "c3_find_overlap"):
+    if lib is None:
         return "unavailable"
     target = np.ascontiguousarray(target, dtype=np.int8)
     query = np.ascontiguousarray(query, dtype=np.int8)
@@ -506,11 +479,11 @@ def sliding_min_dists_c(seq: str, idx_seqs: tuple) -> "np.ndarray | None":
     position-outer loop breaks at the first index whose window overruns,
     so index i only sees positions p <= len(seq) - max(len of indexes
     listed up to i) (C3POa_postprocessing.py:269-278).  Returns (n_idx,)
-    int32 distances, or None when the library/symbol is unavailable or
+    int32 distances, or None when the library is absent or
     an index exceeds the C DP width (the caller runs the Python path).
     """
     lib = get_lib()
-    if lib is None or not hasattr(lib, "c3_sliding_min_dist_multi"):
+    if lib is None:
         return None
     blob, off, maxpref, lens = _index_table(idx_seqs)
     s = np.frombuffer(seq.encode(), dtype=np.uint8)
@@ -536,10 +509,10 @@ def post_demux_c(names: list, seqs: list, hits, combos: tuple,
     BARCODED = 4 bits of ``demux.c``.  Returns ``(outcome, chosen,
     texts)``: each read's outcome code and index (or -1), and the bytes
     of the 3 * ``n_dest`` + 2 destination files; None when the library
-    lacks the symbol, a sequence is not ASCII or an index is wider than
+    is absent, a sequence is not ASCII or an index is wider than
     the C DP row (the caller runs the Python path)."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "c3_post_demux"):
+    if lib is None:
         return None
     try:
         seq_blob = "".join(seqs).encode("ascii")
@@ -581,9 +554,10 @@ def format_fastx(names: list, seqs: list, quals=None) -> "str | None":
     """One GIL-released C call formats a whole group of records:
     FASTA when ``quals`` is None (">name\\nSEQ\\n"), FASTQ otherwise
     ("@name\\nSEQ\\n+\\nQUAL\\n", phred+33 clipped to 93).  Returns the
-    ascii text, or None when the library lacks the symbol."""
+    ascii text, or None when the library is absent or the text overruns
+    its buffer."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "c3_format_fastx") or not names:
+    if lib is None or not names:
         return None if names else ""
     n = len(names)
     # utf-8 in/out: the C formatter treats name bytes opaquely, so
@@ -689,9 +663,9 @@ def dp_score_c(q: np.ndarray, t: np.ndarray, match=5, mismatch=-4,
     """Banded semiglobal DP score via the scalar C routine
     (native/dpbench.c); measures what reference-grade C achieves on this
     host vs the numpy rows of ref/banded.py.  Returns (score, j_end) or
-    None when the library lacks the symbol."""
+    None when the library is absent."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "c3_dp_score"):
+    if lib is None:
         return None
     q = np.ascontiguousarray(q, dtype=np.int8)
     t = np.ascontiguousarray(t, dtype=np.int8)
@@ -708,18 +682,17 @@ def dp_score_c(q: np.ndarray, t: np.ndarray, match=5, mismatch=-4,
 # ---------------- scalar-C full aligner (CPU backend hot path) ----------
 
 def align_and_trace_c(q: np.ndarray, t: np.ndarray, match=5, mismatch=-4,
-                      gap_open=4, gap_ext=2, band=128, normalize=True,
-                      with_edge=False):
+                      gap_open=4, gap_ext=2, band=128, normalize=True):
     """C fast path for ref.banded.align_and_trace: scalar-C banded
     forward with band-local move bytes (native/align.c), then the C
     traceback + homopolymer normalization (traceback.c).  Bit-identical
     records to the numpy spec (tests/test_native.py); ~100x the numpy
     rows — this is what makes the CPU proxy baseline C-grade
-    (BENCHMARKS.md).  Returns an AlignRecord or None when the library
-    lacks the symbol."""
+    (BENCHMARKS.md).  Returns an AlignRecord, or None when the library is
+    absent or the band cannot reach the target's end."""
+    # c3poa_tpu/native.py:581-626 differs: no edge flag
     lib = get_lib()
-    if lib is None or not hasattr(lib, "c3_align_moves") or \
-            not hasattr(lib, "c3_traceback_edge"):
+    if lib is None:
         return None
     from .ref.banded import AlignRecord
 
@@ -742,17 +715,13 @@ def align_and_trace_c(q: np.ndarray, t: np.ndarray, match=5, mismatch=-4,
     qpos = np.zeros(nt32, dtype=np.int32)
     ins_len = np.zeros(nt32 + 1, dtype=np.int32)
     ins_qstart = np.zeros(nt32 + 1, dtype=np.int32)
-    edge = ctypes.c_int32(0)
-    j_start = lib.c3_traceback_edge(
+    j_start = lib.c3_traceback(
         moves, nq, band, q, nq, nt, int(j_end.value),
-        cover, base, qpos, ins_len, ins_qstart, ctypes.byref(edge))
+        cover, base, qpos, ins_len, ins_qstart)
     if normalize:
         lib.c3_normalize(q, t, nt, cover, base, qpos, ins_len, ins_qstart)
-    rec = AlignRecord(cover, base, qpos, ins_len, ins_qstart,
-                      int(j_start), int(j_end.value), int(score))
-    if with_edge:
-        return rec, bool(edge.value)
-    return rec
+    return AlignRecord(cover, base, qpos, ins_len, ins_qstart,
+                       int(j_start), int(j_end.value), int(score))
 
 
 _ARENAS: dict = {}
@@ -840,14 +809,14 @@ def ops_records_batch(qs, ts, ops, j_ends, packed: bool = False,
     qs/ts: lists of int8 code arrays; ops: (n, L) uint8 walk ops
     (2-bit packed, gapped, when ``packed``); j_ends: (n,) ints.  Returns
     a list of normalized AlignRecords whose arrays are views into shared
-    arenas, or None when the symbol is missing.  One GIL-released C call
+    arenas, or None when the library is absent.  One GIL-released C call
     replaces n Python->C round trips.  ``phase`` selects an independent
     arena family — callers issuing several batches whose records must
     stay alive together (e.g. packed + unpacked ops encodings of one
     group) give each batch its own phase.
     """
     lib = get_lib()
-    if lib is None or not hasattr(lib, "c3_ops_records_batch"):
+    if lib is None:
         return None
     from .ref.banded import AlignRecord
 

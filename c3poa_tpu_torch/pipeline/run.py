@@ -327,13 +327,12 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
 
     writers = _SplintWriters(out_path, cfg.compress, restore_sizes)
     manifest_path = os.path.join(out_path, MANIFEST)
-    overlap = getattr(backend, "supports_overlap", False)
+    # c3poa_tpu/pipeline/run.py:332-464 differs: three schedules, each
+    # chosen by what the run observes
+    deep = getattr(backend, "supports_overlap", False)
     # CPU path: parallelize whole groups over processes (the reference's
     # mp.Pool role, C3POa.py:236-257) with in-order writes
-    use_mp = (not overlap) and cfg.num_threads > 1
-    executor = (ThreadPoolExecutor(max_workers=1,
-                                   thread_name_prefix="c3_align")
-                if overlap else None)
+    use_mp = (not deep) and cfg.num_threads > 1
 
     def mine(gi):
         """Does this host own 1-based group gi?"""
@@ -363,16 +362,7 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
 
     progress = Progress("c3poa")
 
-    def finish(gi, group, prelocated):
-        stats.total_reads += len(group)
-        profiler.count("reads", len(group))
-        _process_group(group, combos, cfg, backend, writers, stats,
-                       prelocated)
-        stats.short_reads = filter_stats.short_reads
-        progress.update(len(group))
-        checkpoint(gi)
-
-    def finish_prep(gi, prep):
+    def finish(gi, prep):
         group = prep["group"]
         stats.total_reads += len(group)
         profiler.count("reads", len(group))
@@ -381,18 +371,18 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
         progress.update(len(group))
         checkpoint(gi)
 
-    # deep pipelining: a locate thread runs group g+2's locate while an
-    # align thread runs group g+1's segment + round-1 align + record
-    # building and this thread votes/writes group g — three stages in
-    # flight, so the device queue stays fed through the host-side
-    # phases.  Needs the single-round engine (a second round would align
-    # from the finalize side and race the align thread's record arenas);
-    # finalize of this host's k-th group always completes before its
-    # (k+2)-th prep starts, so the two record-arena generations
-    # (slot = k % 2, counted over OWNED groups — gi % 2 would collide
-    # under multihost round-robin with an even process_count) never
-    # overlap.
-    deep = overlap and cfg.cons.rounds == 1
+    # deep pipelining: a locate thread runs group g+2's host prep while
+    # an align thread runs group g+1's device work + record building and
+    # this thread votes/writes group g — three stages in flight, so the
+    # device queue stays fed through the host-side phases.  Finalize
+    # aligns nothing, and finalize of this host's k-th group always
+    # completes before its (k+2)-th prep starts, so the two record-arena
+    # generations (slot = k % 2, counted over OWNED groups — gi % 2 would
+    # collide under multihost round-robin with an even process_count)
+    # never overlap.
+    executor = (ThreadPoolExecutor(max_workers=1,
+                                   thread_name_prefix="c3_align")
+                if deep else None)
     loc_executor = (ThreadPoolExecutor(max_workers=1,
                                        thread_name_prefix="c3_locate")
                     if deep else None)
@@ -417,7 +407,7 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
                 with profiler.stage("wait_prep", group=pgi):
                     prep = pfut.result()
                 with profiler.stage("finalize", group=pgi):
-                    finish_prep(pgi, prep)
+                    finish(pgi, prep)
 
             groups = iter(stream)
             gi = stream.start_gi
@@ -430,57 +420,28 @@ def run_pipeline(reads_path: str, splint_path: str, out_path: str,
                 if gi <= skip_groups or not mine(gi):
                     continue
                 owned += 1
-                # locate thread carries ALL host prep (locate + segment +
-                # pair building + zero overlap find); the align thread
-                # holds only device launches + record builds.
-                # C3POA_DEEP_SPLIT=0 restores the round-3 placement
-                # (host prep on the align thread) for interleaved A/Bs.
-                split = os.environ.get("C3POA_DEEP_SPLIT", "1") == "1"
-                if split:
-                    fut_host = loc_executor.submit(
-                        _in_span, "host_prep", gi, _host_prepare_group,
-                        group, combos, cfg, backend)
-                else:
-                    fut_host = loc_executor.submit(
-                        _in_span, "host_prep", gi, _locate_group,
-                        group, combos, cfg, backend)
+                # the locate thread carries ALL host prep (locate +
+                # segment + pair building + zero overlap find); the align
+                # thread holds only device launches + record builds
+                fut_host = loc_executor.submit(
+                    _in_span, "host_prep", gi, _host_prepare_group,
+                    group, combos, cfg, backend)
                 if len(prepped) == 2:
                     # finalize the oldest group BEFORE queueing the next
                     # prep: frees its record arena slot
                     finalize(*prepped.popleft())
-                if split:
-                    fut = executor.submit(
-                        lambda g=gi, s=owned % 2, fh=fut_host:
-                            _in_span("device_prep", g, _device_prepare_group,
-                                     _wait_host(g, fh), cfg, backend, s))
-                else:
-                    fut = executor.submit(
-                        lambda g=gi, gr=group, s=owned % 2, fl=fut_host:
-                            _in_span("device_prep", g, _prepare_group,
-                                     gr, combos, cfg, backend,
-                                     _wait_host(g, fl), s))
+                fut = executor.submit(
+                    lambda g=gi, s=owned % 2, fh=fut_host:
+                        _in_span("device_prep", g, _device_prepare_group,
+                                 _wait_host(g, fh), cfg, backend, s))
                 prepped.append((gi, fut))
             while prepped:
                 finalize(*prepped.popleft())
         else:
-            pending = None  # (gi, group, future)
             for gi, group in stream:
                 if gi <= skip_groups or not mine(gi):
                     continue
-                if executor is not None:
-                    # group g+1's locate runs on a worker thread while
-                    # group g's consensus runs on this one
-                    fut = executor.submit(_locate_group, group, combos,
-                                          cfg, backend)
-                    if pending is not None:
-                        pgi, pgroup, pfut = pending
-                        finish(pgi, pgroup, pfut.result())
-                    pending = (gi, group, fut)
-                else:
-                    finish(gi, group, None)
-            if pending is not None:
-                pgi, pgroup, pfut = pending
-                finish(pgi, pgroup, pfut.result())
+                finish(gi, _prepare_group(group, combos, cfg, backend))
         stats.short_reads = filter_stats.short_reads
     finally:
         if executor is not None:
@@ -567,26 +528,18 @@ def _wait_host(gi: int, fut):
         return fut.result()
 
 
-def _locate_group(group, combos, cfg: PipelineConfig, backend):
-    """Locate (the part overlapped with the previous group's consensus
-    when the backend supports it); the stream has encoded the reads."""
+def _host_prepare_group(group, combos, cfg: PipelineConfig,
+                        backend) -> dict:
+    """Host-only preparation: locate + segmentation + consensus pair
+    building + zero-repeat overlap finding; the stream has encoded the
+    reads.  In the deep pipeline this runs on the LOCATE thread so the
+    align thread carries only device launches + GIL-released record
+    builds (the measured align-thread chain was the critical path,
+    BENCHMARKS.md stage profile)."""
     enc = [r.codes for r in group]
     quals = [r.quals for r in group]
     with prof.current.stage("locate"):
         located = backend.locate_many(enc, combos, cfg.mdistcutoff)
-    return enc, quals, located
-
-
-def _host_prepare_group(group, combos, cfg: PipelineConfig, backend,
-                        prelocated=None) -> dict:
-    """Host-only preparation: locate + segmentation + consensus pair
-    building + zero-repeat overlap finding.  In the deep pipeline this
-    runs on the LOCATE thread so the align thread carries only device
-    launches + GIL-released record builds (the measured align-thread
-    chain was the critical path, BENCHMARKS.md stage profile)."""
-    if prelocated is None:
-        prelocated = _locate_group(group, combos, cfg, backend)
-    enc, quals, located = prelocated
 
     jobs: list[ConsensusJob] = []
     job_meta: list = []       # (record idx, splint, seg)
@@ -651,7 +604,7 @@ def _host_prepare_group(group, combos, cfg: PipelineConfig, backend,
 def _device_prepare_group(hprep: dict, cfg: PipelineConfig, backend,
                           arena_slot: int = 0) -> dict:
     """Device half: claim the record-arena generation, run the batched
-    round-1 alignment and the zero-overlap batch.  Runs on the
+    alignment and the zero-overlap batch.  Runs on the
     pipeline's align thread so group g+1's device work overlaps group
     g's host votes/writes; ``arena_slot`` double-buffers the native
     record arenas across the two in-flight groups."""
@@ -678,16 +631,15 @@ def _device_prepare_group(hprep: dict, cfg: PipelineConfig, backend,
     return prep
 
 
-def _prepare_group(group, combos, cfg: PipelineConfig, backend,
-                   prelocated=None, arena_slot: int = 0) -> dict:
+def _prepare_group(group, combos, cfg: PipelineConfig, backend) -> dict:
     """Single-call preparation (host + device halves)."""
-    hprep = _host_prepare_group(group, combos, cfg, backend, prelocated)
-    return _device_prepare_group(hprep, cfg, backend, arena_slot)
+    hprep = _host_prepare_group(group, combos, cfg, backend)
+    return _device_prepare_group(hprep, cfg, backend)
 
 
 def _process_group(group, combos, cfg: PipelineConfig, backend, writers,
-                   stats: PipelineStats, prelocated=None) -> None:
-    prep = _prepare_group(group, combos, cfg, backend, prelocated)
+                   stats: PipelineStats) -> None:
+    prep = _prepare_group(group, combos, cfg, backend)
     _finalize_group(prep, cfg, writers, stats)
 
 
@@ -739,8 +691,7 @@ def _finalize_group_inner(prep: dict, cfg: PipelineConfig, writers,
     _t_wr = prof.current.stage("write")
     _t_wr.__enter__()
     from .. import native
-    use_c = native.available() and hasattr(native.get_lib(),
-                                           "c3_format_fastx")
+    use_c = native.available()
     by_splint: dict = {}  # splint -> (cons_n, cons_s, sub_n, sub_s, sub_q)
     for ri, splint, repeats, cons, seg, job in emitted:
         rec = group[ri]

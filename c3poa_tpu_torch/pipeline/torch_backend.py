@@ -335,30 +335,23 @@ class TorchBackend:
         launches = []
         with prof.current.stage("align_dispatch"):
             for W, chunk in self._chunks(device_items):
-                launches.append((W, chunk,
+                launches.append((chunk,
                                  self._align_launch(pairs, chunk, W, params)))
 
         leftovers = []            # python-fallback work items
         rewalk: list[int] = []    # walks that ran out of steps
-        escalate: list[int] = []  # fast-band paths that touched the edge
         # materialize and build records launch by launch: the GIL-free C
         # record build of launch k overlaps the device computing k + 1
-        for li, (W, chunk, res) in enumerate(launches):
+        for li, (chunk, res) in enumerate(launches):
             with prof.current.stage("align_wait"):
                 # one launch's shares joined before its records are built:
                 # a share spends no record-arena phase of its own
-                scores, j_ends, _j_starts, i_rem, ops, edge = \
+                scores, j_ends, _j_starts, i_rem, ops, _edge = \
                     self.mesh.gather(res)
-            fast = W < params.band
             work = []
             for r, i in enumerate(chunk):
                 if i_rem[r] > 0:
                     rewalk.append(i)
-                    continue
-                if fast and edge[r]:
-                    # fast-band path touched band column 0 / W-1: realign
-                    # at the full band (the spec's escalation rule)
-                    escalate.append(i)
                     continue
                 q, qual, t = pairs[i][0], pairs[i][1], pairs[i][2]
                 work.append((i, q, qual, t, ops[r], int(j_ends[r]),
@@ -366,37 +359,25 @@ class TorchBackend:
             if not work:
                 continue
             with prof.current.stage("align_host_records"):
-                recs = None
-                if native.available():
-                    # one GIL-released C call per launch; ``phase`` gives
-                    # each launch its own arena generation so all of a
-                    # group's records stay alive together
-                    recs = native.ops_records_batch(
-                        [w[1] for w in work], [w[3] for w in work],
-                        np.stack([w[4] for w in work]),
-                        [w[5] for w in work], packed=True,
-                        phase=li + phase_base)
-                if recs is not None:
-                    for (i, q, qual, _t, _o, _j, score), rec in zip(work,
-                                                                    recs):
-                        out[i] = SubreadAln(rec._replace(score=score),
-                                            np.asarray(q, dtype=np.int8),
-                                            np.asarray(qual, dtype=np.int8))
-                else:
+                if not native.available():
                     leftovers.extend(work)
+                    continue
+                # one GIL-released C call per launch; ``phase`` gives
+                # each launch its own arena generation so all of a
+                # group's records stay alive together
+                recs = native.ops_records_batch(
+                    [w[1] for w in work], [w[3] for w in work],
+                    np.stack([w[4] for w in work]),
+                    [w[5] for w in work], packed=True,
+                    phase=li + phase_base)
+                for (i, q, qual, _t, _o, _j, score), rec in zip(work, recs):
+                    out[i] = SubreadAln(rec._replace(score=score),
+                                        np.asarray(q, dtype=np.int8),
+                                        np.asarray(qual, dtype=np.int8))
         if leftovers:
             with prof.current.stage("align_host_records"):
                 for w in leftovers:
                     self._build_record(out, w)
-        if escalate:
-            # identical escalation to serial_align_many: realign at the
-            # full band on the host
-            prof.current.count("align_band_escalated", len(escalate))
-            with prof.current.stage("align_host"):
-                res = serial_align_many([pairs[i][:3] for i in escalate],
-                                        params)
-            for i, r in zip(escalate, res):
-                out[i] = r
         if rewalk:
             # paths longer than the walk's step budget: host realign
             prof.current.count("align_rewalk", len(rewalk))

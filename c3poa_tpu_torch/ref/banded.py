@@ -310,13 +310,12 @@ def normalize_record(rec: AlignRecord, q, t) -> AlignRecord:
 
 
 def align_and_trace(q, t, match=5, mismatch=-4, gap_open=4, gap_ext=2,
-                    band=128, normalize=True, with_edge=False):
+                    band=128, normalize=True):
+    # c3poa_tpu/ref/banded.py:312-323 differs: no with_edge (nothing
+    # escalates a band)
     score, j_end, moves, lo = banded_align(
         q, t, match, mismatch, gap_open, gap_ext, band)
-    rec, edge = traceback(q, t, moves, j_end, lo=lo, band=band)
+    rec, _edge = traceback(q, t, moves, j_end, lo=lo, band=band)
     if normalize:
         rec = normalize_record(rec, q, t)
-    rec = rec._replace(score=int(score))
-    if with_edge:
-        return rec, edge
-    return rec
+    return rec._replace(score=int(score))

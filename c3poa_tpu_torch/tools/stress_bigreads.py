@@ -29,7 +29,7 @@ from ..pipeline.run import PipelineConfig, run_pipeline
 # the port has none of: these take their place
 COUNTERS = ("locate_launches", "locate_cells_real", "locate_cells_padded",
             "overlong_reads_host_located", "align_overlong_host",
-            "align_band_escalated", "align_rewalk")
+            "align_rewalk")
 
 
 def make_big_dataset(path, n_reads, seed=0):

@@ -35,11 +35,10 @@ repo's Python dependencies (no JAX needed or imported):
    30 copies), two of 98-131 kb that stay on the card (a locate batch of
    L > 98304, the peak kernel's cluster of 4 ranks) and two over
    ``MAX_READ_LEN`` (located on the host): the three output files equal
-   the numpy backend's byte for byte, as shipped and under
-   ``C3POA_FAST_BAND=64`` (a forward launch at W = 64 required); prints
-   each locate launch's B, L and cluster, the card's peak memory, the
-   padded cells, and times one locate batch at the widest L and the
-   forward and walk at the largest nq beside their bounds;
+   the numpy backend's byte for byte; prints each locate launch's B, L
+   and cluster, the card's peak memory, the padded cells, and times one
+   locate batch at the widest L and the forward and walk at the largest
+   nq beside their bounds;
 9. runs ``c3poa_tpu_torch.tools.poa_stress``'s clean and chimera-heavy
    sets (512 reads, seed 3) through ``TorchBackend`` on the card against
    the numpy backend (ROADMAP 1.13): trees byte-identical, the heavy
@@ -1554,10 +1553,9 @@ def time_banded(log_: LaunchLog) -> None:
 def phase_long_reads():
     """Long and overlong reads through the consensus CLI on the card
     (ROADMAP 1.12): the set of ``long_read_set`` against the numpy
-    backend, once as shipped and once under ``C3POA_FAST_BAND=64`` (both
-    arms; restored afterwards); each locate launch's B, L and cluster;
-    then one locate batch at the widest L and the forward and walk at the
-    largest nq, timed at the shapes the run launched."""
+    backend; each locate launch's B, L and cluster; then one locate batch
+    at the widest L and the forward and walk at the largest nq, timed at
+    the shapes the run launched."""
     path = os.path.join(WORK, "long")
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
@@ -1588,27 +1586,6 @@ def phase_long_reads():
                            "of 4 ranks")
     log("  align launches (W, P, nq): " + json.dumps(
         [(a[4]["band"], *a[0].shape) for a in launches.aligns]))
-
-    before = os.environ.get("C3POA_FAST_BAND")
-    os.environ["C3POA_FAST_BAND"] = "64"
-    try:
-        with LaunchLog() as fast:
-            stats, _ = consensus_run_and_numpy(
-                "long reads, C3POA_FAST_BAND=64", path,
-                os.path.join(path, "fast_cuda"),
-                os.path.join(path, "fast_numpy"))
-    finally:
-        if before is None:
-            os.environ.pop("C3POA_FAST_BAND")
-        else:
-            os.environ["C3POA_FAST_BAND"] = before
-    c = stats["counters"]
-    w64 = sum(a[4]["band"] == 64 for a in fast.aligns)
-    log(f"fast band: {w64} of {len(fast.aligns)} align launches at W = 64; "
-        f"align_band_escalated {c.get('align_band_escalated', 0)}, "
-        f"align_rewalk {c.get('align_rewalk', 0)}")
-    if not w64:
-        raise SmokeFailure("no forward launch at W = 64 under the fast band")
 
     time_locate_batch(launches)
     time_banded(launches)

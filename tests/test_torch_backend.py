@@ -1,7 +1,7 @@
 """TorchBackend on the CPU (plain torch versions) against the numpy
 backend and the JAX backend: locate results and alignment records,
 including forced host reruns, overlong reads, the zero-repeat scoring,
-fast-band escalation and the batching."""
+a path along a band-64 edge and the batching."""
 
 import os
 import re
@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from c3poa_tpu import sim
-from c3poa_tpu.consensus.engine import ConsensusParams, zero_params
+from c3poa_tpu.consensus.engine import ConsensusParams, _pair_band, zero_params
 from c3poa_tpu.pipeline.backend import Combo, NumpyBackend
 from c3poa_tpu.pipeline.tpu_backend import TpuBackend
+from c3poa_tpu.ref import banded
 from c3poa_tpu.utils import encode, revcomp_encoded
 from c3poa_tpu_torch.kernels import banded as tbk
 from c3poa_tpu_torch.kernels import peaks as tpk
@@ -101,8 +102,9 @@ def test_locate_many_long_splint_host_path(located_reads, monkeypatch):
 
 def _pairs(seed):
     """Subread/draft-shaped pairs: core copies, anchored fragments (device
-    and serial routes), a fast-band pair that must escalate, and one
-    fast-band pair that stays."""
+    and serial routes), and two pairs that carry band 64: one with a
+    100-base insertion, whose path runs along the band's edge, and one
+    that stays inside it."""
     rng = np.random.default_rng(seed)
     pairs = []
     for _ in range(7):
@@ -129,6 +131,20 @@ def _snap(alns):
              np.array(a.qual)) for a in alns]
 
 
+def _spec(pairs, p):
+    """The JAX package's numpy spec, each pair aligned once at its own
+    band (its ``serial_align_many`` would realign a band-64 path that
+    touches the band's edge at ``p.band``)."""
+    out = []
+    for pr in pairs:
+        rec = banded.align_and_trace(
+            pr[0], pr[2], match=p.match, mismatch=p.mismatch,
+            gap_open=p.gap_open, gap_ext=p.gap_ext, band=_pair_band(pr, p))
+        out.append((tuple(np.array(f) for f in rec), np.array(pr[0]),
+                    np.array(pr[1])))
+    return out
+
+
 def _assert_same_records(got, want):
     assert len(got) == len(want)
     for k, ((rg, qg, sg), (rw, qw, sw)) in enumerate(zip(got, want)):
@@ -150,11 +166,14 @@ def test_align_many_matches_numpy(scoring):
     prof.reset()
     got = _snap(TorchBackend("cpu").align_many(pairs, p, phase_base=phase))
     counts = dict(prof.current.counts)
-    want = _snap(NumpyBackend().align_many(pairs, p))
-    _assert_same_records(got, want)
+    _assert_same_records(got, _spec(pairs, p))
     assert counts["align_launches"] == 2      # one per band
     if scoring == "main":
-        assert counts.get("align_band_escalated", 0) >= 1
+        q, _qual, t, band = pairs[9]
+        _rec, edge = banded.align_and_trace(
+            q, t, match=p.match, mismatch=p.mismatch, gap_open=p.gap_open,
+            gap_ext=p.gap_ext, band=band, with_edge=True)
+        assert edge
 
 
 def test_output_does_not_depend_on_batching(located_reads, monkeypatch):
@@ -206,4 +225,4 @@ def test_align_many_overlong_targets_host_path(monkeypatch, scoring):
     prof.reset()
     got = _snap(TorchBackend("cpu").align_many(pairs, p))
     assert prof.current.counts["align_overlong_host"] == n_long
-    _assert_same_records(got, _snap(NumpyBackend().align_many(pairs, p)))
+    _assert_same_records(got, _spec(pairs, p))

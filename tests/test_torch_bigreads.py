@@ -124,22 +124,6 @@ def test_a_read_over_max_read_len_locates_as_numpy():
         assert np.array_equal(x.peaks, y.peaks) and len(x.peaks) > 2
 
 
-def test_fast_band_cpu_matches_numpy(long_set, tmp_path, monkeypatch):
-    """Under ``C3POA_FAST_BAND=64`` the core pairs launch at W = 64 and the
-    rest at 128 (two align launches); the tree equals the numpy
-    backend's under the same setting and the one without it."""
-    d, out_plain = long_set
-    monkeypatch.setenv("C3POA_FAST_BAND", "64")
-    out = str(tmp_path / "cpu")
-    _s, _dt, st = stress_bigreads.run(d, out,
-                                      stress_bigreads.make_backend("cpu"))
-    assert st["counters"]["align_launches"] == 2
-    out_np = str(tmp_path / "numpy")
-    stress_bigreads.run(d, out_np, stress_bigreads.make_backend("numpy"))
-    _same_tree(out, out_np)
-    _same_tree(out, out_plain)
-
-
 def test_main_prints_both_runs_counters(capsys):
     """The tool's two runs on the plain versions, each line with the
     port's counters in place of the original's compile-shape ones."""

@@ -8,7 +8,7 @@ negative slice start wraps), minus under 16 and under 40, positions past
 the read's end and below 0, scores exactly at ``score_min``, second hits,
 index ties and margins of exactly 1, single, mixed-length and oddly named
 index files, lowercase and N bases, non-ASCII names.  Each fallback (no
-symbol, an index wider than the C DP row, a non-ASCII sequence, an index
+library, an index wider than the C DP row, a non-ASCII sequence, an index
 named '-') gives the Python path's result, its exception included.  The
 index match's distances (``overlap.c``, bit-parallel) are held to the
 plain DP of the reference's loop."""
@@ -182,19 +182,7 @@ KINDS = ["none", "four", "single", "mixed", "ties", "names"]
 CASES = [("parity", kind, flags) for kind in KINDS for flags in FLAGS] + \
     [("half_score", "four", (True, False, False))] + \
     [(fb, "four", (True, False, False))
-     for fb in ("no_symbol", "wide_index", "non_ascii_seq", "dash_name")]
-
-
-class _NoDemuxSymbol:
-    """The library without ``c3_post_demux``."""
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        if name == "c3_post_demux":
-            raise AttributeError(name)
-        return getattr(self._lib, name)
+     for fb in ("no_library", "wide_index", "non_ascii_seq", "dash_name")]
 
 
 def case_id(case):
@@ -223,9 +211,8 @@ def test_c_demux_equals_the_python_path(monkeypatch, case, kind, flags):
         for b, rec in enumerate(records):
             if len(rec.seq) > 100:
                 records[b] = rec._replace(seq="é" + rec.seq[1:])
-    elif case == "no_symbol":
-        monkeypatch.setattr(native, "get_lib",
-                            lambda lib=native.get_lib(): _NoDemuxSymbol(lib))
+    elif case == "no_library":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
 
     want = run(postprocess._demux_python, records, hits, cfg, indexes)
     calls = []

@@ -6,6 +6,7 @@ and CLI are byte-identical to the JAX package's on the golden
 fixtures."""
 
 import ast
+import ctypes
 import hashlib
 import os
 import shutil
@@ -164,6 +165,30 @@ def test_native_build_is_safe_under_concurrent_loaders(tmp_path):
     built = os.listdir(root / "build" / "c3poa_tpu_torch" / "native")
     assert sorted(f for f in built if not f.startswith(".")) == \
         [os.path.basename(outs[0][1])]
+
+
+def test_native_library_binds_every_symbol():
+    """Every ``lib.c3_*`` that a wrapper in ``native.py`` uses is in the
+    built library and was bound by ``get_lib`` (its ``argtypes`` set): a
+    library that loads is the whole build, so no wrapper checks for a
+    symbol."""
+    from c3poa_tpu_torch import native
+    tree = ast.parse(open(os.path.join(PORT, "native.py")).read())
+    used = {node.attr
+            for fn in tree.body
+            if isinstance(fn, ast.FunctionDef) and fn.name != "get_lib"
+            for node in ast.walk(fn)
+            if isinstance(node, ast.Attribute)
+            and isinstance(node.value, ast.Name) and node.value.id == "lib"
+            and node.attr.startswith("c3_")}
+    assert {"c3_fastq_read", "c3_format_fastx", "c3_ops_records_batch",
+            "c3_post_demux", "c3_vote_jobs", "c3_align_moves"} <= used
+    lib = native.get_lib()
+    assert lib is not None, native.build_error
+    built = ctypes.CDLL(native.lib_path())
+    for name in sorted(used):
+        assert hasattr(built, name), name
+        assert getattr(lib, name).argtypes is not None, name
 
 
 def _digest(path):
