@@ -137,10 +137,16 @@ def get_lib():
     ]
     lib.c3_vote_jobs.restype = None
     lib.c3_vote_jobs.argtypes = [
-        i32, i64p, i64p, i64p, i64p, i64p,
+        i32, i64p, i64p, i64p, i64p, i64p, i64p, i64p,
         i8p, i8p, i32p, i32p, i32p, i32p,
-        i8p, i8p, i8p, i8p, i32,
+        i8p, i8p, i32,
         i8p, i8p, i32p, i32,
+    ]
+    lib.c3_place_records.restype = None
+    lib.c3_place_records.argtypes = [
+        u8p, i64, i64p, i32, i64p, i32p,
+        i8p, i64p, i64p, i64p, i64p, i64p, i64p,
+        i8p, i8p, i32p, i32p, i32p, i32p,
     ]
     lib.c3_find_overlap.restype = i32
     lib.c3_find_overlap.argtypes = [
@@ -246,9 +252,8 @@ _VOTE_TLS = threading.local()
 
 
 def _vote_arena(name, shape, dtype):
-    """Grow-only per-thread buffers (the vote pool calls this from 4
-    threads): fresh numpy allocations cost more in first-touch page
-    faults than the C vote itself."""
+    """Grow-only per-thread buffers: fresh numpy allocations cost more
+    in first-touch page faults than the C vote itself."""
     size = int(np.prod(shape))
     store = getattr(_VOTE_TLS, "arenas", None)
     if store is None:
@@ -308,94 +313,39 @@ def vote_consensus_c(nt: int, alns, qmin: int = 5):
     return out_codes[:n].copy(), out_quals[:n].copy()
 
 
-def vote_jobs_c(job_voters, drafts, draft_quals, qmin: int = 5,
+def vote_jobs_c(jobs, index, records, codes, quals, qmin: int = 5,
                 nthreads: int = 4):
-    """Batched C vote across many jobs in one GIL-released call.
-
-    job_voters: list (per job) of lists of SubreadAln voters — WITHOUT
-    the draft, which is passed separately via drafts/draft_quals and
-    participates as the implicit extra voter (record_for_draft
-    semantics).  Returns a list of (codes, quals) per job, or None when
-    the library is absent.  Per-job buffer overflows
-    (consensus > 2*nt + 64, pathological) are re-voted through the
-    single-job path automatically.
-    """
+    """Batched C vote of the jobs ``jobs`` of a group in one GIL-released
+    call, straight from the group's vote layout, whose records the record
+    build wrote in place: nothing is copied on the way.  ``index`` is the
+    layout's (jv_off, vnt_off, q_off, dr_off, job_nt), ``records`` its
+    (cover, base, qpos, ins_len, ins_qstart, j_span) buffers, ``codes`` /
+    ``quals`` its read blob (``consensus/layout.py:VoteLayout``).  Each
+    job's draft is the implicit extra voter (record_for_draft semantics).
+    Returns (codes, quals) a job, None for a job whose consensus outgrew
+    its buffer (2*nt + 64, pathological: the caller votes it alone), or
+    None in place of the list when the library is absent."""
+    # c3poa_tpu/native.py:306-393 differs: no records are gathered
     lib = get_lib()
     if lib is None:
         return None
-    n_jobs = len(job_voters)
+    jobs = np.asarray(jobs, dtype=np.int64)
+    n_jobs = len(jobs)
     if n_jobs == 0:
         return []
-
-    jv_off = np.zeros(n_jobs + 1, dtype=np.int64)
-    dr_off = np.zeros(n_jobs + 1, dtype=np.int64)
+    job_nt = index[4]
     out_off = np.zeros(n_jobs + 1, dtype=np.int64)
-    covers, bases, qposs, ins_ls, ins_qs = [], [], [], [], []
-    jspans, queries, quals = [], [], []
-    for j, voters in enumerate(job_voters):
-        jv_off[j + 1] = jv_off[j] + len(voters)
-        nt = len(drafts[j])
-        dr_off[j + 1] = dr_off[j] + nt
-        out_off[j + 1] = out_off[j] + 2 * nt + 64
-        for rec, query, qual in voters:
-            covers.append(rec.cover)
-            bases.append(rec.base)
-            qposs.append(rec.qpos)
-            ins_ls.append(rec.ins_len)
-            ins_qs.append(rec.ins_qstart)
-            jspans.append(rec.j_start)
-            jspans.append(rec.j_end)
-            queries.append(query)
-            quals.append(qual)
-
-    def blob(parts, dtype):
-        if not parts:
-            return np.zeros(0, dtype=dtype)
-        return np.ascontiguousarray(np.concatenate(parts), dtype=dtype)
-
-    vnt = np.array([len(c) for c in covers], dtype=np.int64)
-    vnt_off = np.zeros(len(covers) + 1, dtype=np.int64)
-    np.cumsum(vnt, out=vnt_off[1:])
-    q_len = np.array([len(q) for q in queries], dtype=np.int64)
-    q_off = np.zeros(len(queries) + 1, dtype=np.int64)
-    np.cumsum(q_len, out=q_off[1:])
-
-    cover_b = blob(covers, np.int8)
-    base_b = blob(bases, np.int8)
-    qpos_b = blob(qposs, np.int32)
-    ins_l_b = blob(ins_ls, np.int32)
-    ins_q_b = blob(ins_qs, np.int32)
-    j_span = np.asarray(jspans, dtype=np.int32)
-    query_b = blob(queries, np.int8)
-    qual_b = blob(quals, np.int8)
-    draft_b = blob(list(drafts), np.int8)
-    draft_q_b = blob(list(draft_quals), np.int8)
-
-    total_out = int(out_off[-1])
-    out_codes = np.empty(total_out, dtype=np.int8)
-    out_quals = np.empty(total_out, dtype=np.int8)
+    np.cumsum(2 * job_nt[jobs] + 64, out=out_off[1:])
+    out_codes = np.empty(int(out_off[-1]), dtype=np.int8)
+    out_quals = np.empty(int(out_off[-1]), dtype=np.int8)
     out_lens = np.empty(n_jobs, dtype=np.int32)
 
-    lib.c3_vote_jobs(
-        n_jobs, jv_off, vnt_off, q_off, dr_off, out_off,
-        cover_b, base_b, qpos_b, ins_l_b, ins_q_b, j_span,
-        query_b, qual_b, draft_b, draft_q_b, qmin,
-        out_codes, out_quals, out_lens, nthreads)
+    lib.c3_vote_jobs(n_jobs, jobs, *index, out_off, *records, codes, quals,
+                     qmin, out_codes, out_quals, out_lens, nthreads)
 
-    results = []
-    for j in range(n_jobs):
-        n = int(out_lens[j])
-        if n < 0:
-            # overflow: re-vote this job alone with a growing buffer
-            from .consensus.vote import record_for_draft
-            alns = [record_for_draft(drafts[j], draft_quals[j])] \
-                + list(job_voters[j])
-            results.append(vote_consensus_c(len(drafts[j]), alns, qmin))
-            continue
-        a = int(out_off[j])
-        results.append((out_codes[a:a + n].copy(),
-                        out_quals[a:a + n].copy()))
-    return results
+    return [None if n < 0 else
+            (out_codes[a:a + n].copy(), out_quals[a:a + n].copy())
+            for a, n in zip(out_off.tolist(), out_lens.tolist())]
 
 
 # ---------------- POA fallback (divergence-routed reads) ----------------
@@ -802,6 +752,37 @@ def set_arena_slot(slot: int) -> None:
     _ARENA_SLOT = int(slot) & 1
 
 
+def slot_arena(name: str, size: int, dtype, phase=0) -> np.ndarray:
+    """``size`` elements of the current arena slot's grow-only buffer
+    ``(name, phase)``.  Fresh allocations cost ~0.75 s of first-touch
+    page faults per 90 MB call, the C loop filling them ~35 ms
+    (measured).  What is handed out is a view: its owner consumes it
+    before the slot's next generation claims it (claim_arena_slot)."""
+    key = (name, _ARENA_SLOT, phase)
+    buf = _ARENAS.get(key)
+    if buf is None or buf.size < size or buf.dtype != dtype:
+        buf = np.empty(int(size * 1.25), dtype=dtype)
+        _ARENAS[key] = buf
+    return buf[:size]
+
+
+def place_records(ops, rows, voters, j_ends, blob, index, records) -> None:
+    """Build the records of one device launch in place, in one
+    GIL-released C call (``traceback.c:c3_place_records``): row
+    ``rows[k]`` of the packed walk ``ops`` is voter ``voters[k]``'s,
+    written at the voter's slot of a vote layout in its draft's
+    coordinates, queries and targets read from ``blob``.  ``index`` is
+    the layout's (q_off, q_len, t_off, w_len, w_off, vnt_off), ``records``
+    its (cover, base, qpos, ins_len, ins_qstart, j_span) buffers
+    (``consensus/layout.py:VoteLayout``).  Needs the library."""
+    ops = np.ascontiguousarray(ops, dtype=np.uint8)
+    get_lib().c3_place_records(
+        ops, ops.shape[1], np.ascontiguousarray(rows, dtype=np.int64),
+        len(voters), np.ascontiguousarray(voters, dtype=np.int64),
+        np.ascontiguousarray(j_ends, dtype=np.int32), blob, *index,
+        *records)
+
+
 def ops_records_batch(qs, ts, ops, j_ends, packed: bool = False,
                       phase: int = 0):
     """Batched C record building + normalization for one device launch.
@@ -836,24 +817,11 @@ def ops_records_batch(qs, ts, ops, j_ends, packed: bool = False,
 
     total_nt = int(nt_off[n])
     total_nt1 = int(nt1_off[n])
-    # grow-only arena reuse: fresh allocations cost ~0.75 s of first-touch
-    # page faults per 90 MB call, the C loop itself ~35 ms (measured).
-    # The records handed out are views — callers consume them before the
-    # next group's align call (single-threaded align path), so reuse is
-    # safe within the pipeline's group-at-a-time structure.
-    def arena(name, size, dtype):
-        key = (name, _ARENA_SLOT, phase)
-        buf = _ARENAS.get(key)
-        if buf is None or buf.size < size or buf.dtype != dtype:
-            buf = np.empty(int(size * 1.25), dtype=dtype)
-            _ARENAS[key] = buf
-        return buf[:size]
-
-    cover = arena("cover", total_nt, np.int8)
-    base = arena("base", total_nt, np.int8)
-    qpos = arena("qpos", total_nt, np.int32)
-    ins_len = arena("ins_len", total_nt1, np.int32)
-    ins_qstart = arena("ins_qstart", total_nt1, np.int32)
+    cover = slot_arena("cover", total_nt, np.int8, phase)
+    base = slot_arena("base", total_nt, np.int8, phase)
+    qpos = slot_arena("qpos", total_nt, np.int32, phase)
+    ins_len = slot_arena("ins_len", total_nt1, np.int32, phase)
+    ins_qstart = slot_arena("ins_qstart", total_nt1, np.int32, phase)
     j_starts = np.empty(n, dtype=np.int32)
     je = np.ascontiguousarray(j_ends, dtype=np.int32)
 

@@ -415,33 +415,35 @@ int32_t c3_vote(
 
 /* ---------------- batched per-group voting ----------------
  *
- * One call votes every job of a read group (the per-job Python->C round
- * trips and (N, nt) re-marshalling dominated the vote stage).  All
- * voters arrive concatenated job-major:
- *   jv_off (n_jobs+1): voter index range of job j;
- *   vnt_off (total_voters+1): offset of voter v's nt-wide arrays in the
- *     cover/base/qpos blobs (nt1 arrays use vnt_off[v] + v);
- *   q_off (total_voters+1): offset of voter v's query/qual;
- *   dr_off (n_jobs+1): offset of job j's draft codes/quals (the draft is
- *     the implicit extra voter); nt_job[j] = dr_off[j+1] - dr_off[j];
- *   out_off (n_jobs+1): output slice per job (capacity out_off[j+1]-out_off[j]).
- * out_lens[j] = emitted length, or -1 on per-job overflow (caller
+ * One call votes the chosen jobs of a read group straight from the
+ * group's vote layout (consensus/layout.py), which the record build
+ * wrote in place.  Voters are job-major:
+ *   jv_off (n_all+1): voter index range of job j (every job of the
+ *     group; ``jobs`` picks the n_jobs to vote);
+ *   vnt_off (V+1): offset of voter v's nt-wide arrays in the cover/base/
+ *     qpos blobs (the nt+1 arrays start at vnt_off[v] + v);
+ *   q_off (V): start of voter v's query/qual in the group's read blobs;
+ *   dr_off, job_nt (n_all): start and length of job j's draft in those
+ *     blobs (the draft is the implicit extra voter);
+ *   out_off (n_jobs+1): output slice of the k-th chosen job.
+ * out_lens[k] = emitted length, or -1 on per-job overflow (caller
  * re-votes that job with a bigger buffer).  Jobs fan out over nthreads
  * POSIX threads (voting is embarrassingly parallel across jobs).
  */
 
 typedef struct {
     int32_t n_jobs;
+    const int64_t *jobs;
     const int64_t *jv_off;
     const int64_t *vnt_off;
     const int64_t *q_off;
     const int64_t *dr_off;
+    const int64_t *job_nt;
     const int64_t *out_off;
     const int8_t *cover; const int8_t *base; const int32_t *qpos;
     const int32_t *ins_len; const int32_t *ins_qstart;
     const int32_t *j_span;
-    const int8_t *queries; const int8_t *quals;
-    const int8_t *drafts; const int8_t *draft_qs;
+    const int8_t *codes; const int8_t *quals;
     int32_t qmin;
     int8_t *out_codes; int8_t *out_quals;
     int32_t *out_lens;
@@ -450,23 +452,24 @@ typedef struct {
 
 static void *vote_jobs_worker(void *arg) {
     vote_jobs_ctx *c = (vote_jobs_ctx *)arg;
-    for (int32_t j = c->tid; j < c->n_jobs; j += c->nthreads) {
+    for (int32_t k = c->tid; k < c->n_jobs; k += c->nthreads) {
+        int64_t j = c->jobs[k];
         int64_t v0 = c->jv_off[j], v1 = c->jv_off[j + 1];
         int32_t N = (int32_t)(v1 - v0);
-        int32_t nt = (int32_t)(c->dr_off[j + 1] - c->dr_off[j]);
+        int32_t nt = (int32_t)c->job_nt[j];
         int64_t base_nt = c->vnt_off[v0];
-        /* q_off entries are absolute into the global query/qual blobs,
-         * so the blob pointers pass through unrebased */
-        c->out_lens[j] = vote_one(
+        /* q_off entries are absolute into the read blobs, so the blob
+         * pointers pass through unrebased */
+        c->out_lens[k] = vote_one(
             N, nt,
             c->cover + base_nt, c->base + base_nt, c->qpos + base_nt,
             c->ins_len + base_nt + v0, c->ins_qstart + base_nt + v0,
             c->j_span + v0 * 2,
-            c->queries, c->quals, c->q_off + v0,
-            c->drafts + c->dr_off[j], c->draft_qs + c->dr_off[j],
+            c->codes, c->quals, c->q_off + v0,
+            c->codes + c->dr_off[j], c->quals + c->dr_off[j],
             c->qmin,
-            c->out_codes + c->out_off[j], c->out_quals + c->out_off[j],
-            (int32_t)(c->out_off[j + 1] - c->out_off[j]));
+            c->out_codes + c->out_off[k], c->out_quals + c->out_off[k],
+            (int32_t)(c->out_off[k + 1] - c->out_off[k]));
     }
     return NULL;
 }
@@ -474,14 +477,13 @@ static void *vote_jobs_worker(void *arg) {
 #include <pthread.h>
 
 void c3_vote_jobs(
-    int32_t n_jobs,
+    int32_t n_jobs, const int64_t *jobs,
     const int64_t *jv_off, const int64_t *vnt_off, const int64_t *q_off,
-    const int64_t *dr_off, const int64_t *out_off,
+    const int64_t *dr_off, const int64_t *job_nt, const int64_t *out_off,
     const int8_t *cover, const int8_t *base, const int32_t *qpos,
     const int32_t *ins_len, const int32_t *ins_qstart,
     const int32_t *j_span,
-    const int8_t *queries, const int8_t *quals,
-    const int8_t *drafts, const int8_t *draft_qs,
+    const int8_t *codes, const int8_t *quals,
     int32_t qmin,
     int8_t *out_codes, int8_t *out_quals, int32_t *out_lens,
     int32_t nthreads
@@ -493,9 +495,9 @@ void c3_vote_jobs(
     int created[16] = {0};
     for (int32_t t = 0; t < nthreads; t++) {
         ctxs[t] = (vote_jobs_ctx){
-            n_jobs, jv_off, vnt_off, q_off, dr_off, out_off,
+            n_jobs, jobs, jv_off, vnt_off, q_off, dr_off, job_nt, out_off,
             cover, base, qpos, ins_len, ins_qstart, j_span,
-            queries, quals, drafts, draft_qs, qmin,
+            codes, quals, qmin,
             out_codes, out_quals, out_lens, t, nthreads};
         if (t < nthreads - 1 &&
             pthread_create(&tids[t], NULL, vote_jobs_worker, &ctxs[t]) == 0) {
@@ -508,6 +510,60 @@ void c3_vote_jobs(
     }
     for (int32_t t = 0; t < nthreads; t++)
         if (created[t]) pthread_join(tids[t], NULL);
+}
+
+/* Record building in place: each record of one device launch is written
+ * once, at its voter's slot of the group's vote layout, in the draft's
+ * coordinates (ref/banded.py:embed_record of the window record, without
+ * the window record).  Row r of ``ops`` (at ops + rows[r] * ops_stride)
+ * holds voter voters[r]'s packed walk (2-bit, four a byte); its query and
+ * window target are read
+ * from the group's read blob (q_off/q_len, t_off/w_len); w_off is the
+ * window's offset in the draft.  Columns outside the window get what
+ * embed_record gives them (cover 0, base 4, qpos -1, ins_len 0,
+ * ins_qstart -1): the layout is reused across groups, so every byte of
+ * the voter's slot is written.  j_span (V, 2) gets the draft-coordinate
+ * span. */
+void c3_place_records(
+    const uint8_t *ops, int64_t ops_stride, const int64_t *rows, int32_t n,
+    const int64_t *voters, const int32_t *j_ends,
+    const int8_t *blob, const int64_t *q_off, const int64_t *q_len,
+    const int64_t *t_off, const int64_t *w_len, const int64_t *w_off,
+    const int64_t *vnt_off,
+    int8_t *cover, int8_t *base, int32_t *qpos,
+    int32_t *ins_len, int32_t *ins_qstart, int32_t *j_span
+) {
+    for (int32_t r = 0; r < n; r++) {
+        int64_t v = voters[r];
+        int32_t nt = (int32_t)(vnt_off[v + 1] - vnt_off[v]);
+        int32_t off = (int32_t)w_off[v], wl = (int32_t)w_len[v];
+        int32_t tail = nt - off - wl;
+        int8_t *cv = cover + vnt_off[v];
+        int8_t *bs = base + vnt_off[v];
+        int32_t *qp = qpos + vnt_off[v];
+        int32_t *il = ins_len + vnt_off[v] + v;
+        int32_t *iq = ins_qstart + vnt_off[v] + v;
+        memset(cv, 0, (size_t)off);
+        memset(cv + off + wl, 0, (size_t)tail);
+        memset(bs, 4, (size_t)off);
+        memset(bs + off + wl, 4, (size_t)tail);
+        for (int32_t j = 0; j < off; j++) qp[j] = -1;
+        for (int32_t j = off + wl; j < nt; j++) qp[j] = -1;
+        memset(il, 0, sizeof(int32_t) * (size_t)off);
+        memset(il + off + wl + 1, 0, sizeof(int32_t) * (size_t)tail);
+        for (int32_t j = 0; j < off; j++) iq[j] = -1;
+        for (int32_t j = off + wl + 1; j <= nt; j++) iq[j] = -1;
+        const int8_t *q = blob + q_off[v];
+        const int8_t *t = blob + t_off[v];
+        int32_t nq = (int32_t)q_len[v];
+        int32_t js = c3_ops_record_packed(
+            ops + rows[r] * ops_stride, (int32_t)ops_stride, q, nq, wl,
+            j_ends[r], cv + off, bs + off, qp + off, il + off, iq + off);
+        c3_normalize(q, t, wl, cv + off, bs + off, qp + off, il + off,
+                     iq + off);
+        j_span[2 * v] = js + off;
+        j_span[2 * v + 1] = j_ends[r] + off;
+    }
 }
 
 /* Batched record building: one call per device launch instead of one

@@ -572,7 +572,10 @@ def _host_prepare_group(group, combos, cfg: PipelineConfig,
         sq = [qual[a:b] for a, b in seg.subread_bounds]
         dang = [codes[a:b] for a, b in seg.dangling_bounds]
         dq = [qual[a:b] for a, b in seg.dangling_bounds]
-        jobs.append(ConsensusJob(subs, sq, dang, dq))
+        jobs.append(ConsensusJob(
+            subs, sq, dang, dq, read=(codes, qual),
+            starts=[a for a, _ in seg.subread_bounds]
+            + [a for a, _ in seg.dangling_bounds]))
         job_meta.append((ri, combo.splint_name, seg))
     _t_seg.__exit__(None, None, None)
 

@@ -12,7 +12,8 @@ so ``run_pipeline`` and ``run_postprocess`` drive it unchanged:
 - ``align_many``: (query, target) pairs are batched by band, longest
   first, through the banded forward kernel and the path-walk kernel
   (``kernels/banded.py``); the packed ops come back and native C builds
-  the records.
+  the records, a pair that carries a vote-layout destination straight
+  into its slot (``consensus/layout.py``).
 - ``adapter_hits``: reads are batched longest first through the
   adapter-hits kernel (``kernels/adapters.py``) for postprocessing.
 
@@ -36,6 +37,7 @@ import torch
 from .. import native
 from ..consensus.engine import (ConsensusParams, _pair_band,
                                 serial_align_many)
+from ..consensus.layout import PlacedAln
 from ..consensus.vote import SubreadAln
 from ..device import resolve_device
 from ..kernels import banded as kbanded
@@ -268,11 +270,14 @@ class TorchBackend:
     # ---------------- align ----------------
 
     def align_many(self, pairs, params: ConsensusParams,
-                   phase_base: int = 0) -> list[SubreadAln]:
+                   phase_base: int = 0) -> list:
         """``phase_base`` offsets the record-arena phase of this call's
         launches: a second align_many within one group (the zero-repeat
         overlap batch) must not reuse the main call's arena phases while
-        both calls' records are alive (native.ops_records_batch)."""
+        both calls' records are alive (native.ops_records_batch).  Pairs
+        with a destination (a 5th element) use no such arena: their
+        records are built in their vote layout, and what this returns
+        for them reads them there (``PlacedAln``)."""
         prof.current.count(
             "align_cells",
             sum(len(pr[0]) * _pair_band(pr, params) for pr in pairs))
@@ -302,7 +307,7 @@ class TorchBackend:
         return chunks
 
     def _align_many(self, pairs, params: ConsensusParams,
-                    phase_base: int = 0) -> list[SubreadAln]:
+                    phase_base: int = 0) -> list:
         out: list = [None] * len(pairs)
         serial: list[int] = []
         device_items = []
@@ -340,6 +345,7 @@ class TorchBackend:
 
         leftovers = []            # python-fallback work items
         rewalk: list[int] = []    # walks that ran out of steps
+        use_c = native.available()
         # materialize and build records launch by launch: the GIL-free C
         # record build of launch k overlaps the device computing k + 1
         for li, (chunk, res) in enumerate(launches):
@@ -349,17 +355,31 @@ class TorchBackend:
                 scores, j_ends, _j_starts, i_rem, ops, _edge = \
                     self.mesh.gather(res)
             work = []
+            placed: dict = {}     # id(layout) -> (layout, rows, voters)
             for r, i in enumerate(chunk):
                 if i_rem[r] > 0:
                     rewalk.append(i)
                     continue
-                q, qual, t = pairs[i][0], pairs[i][1], pairs[i][2]
-                work.append((i, q, qual, t, ops[r], int(j_ends[r]),
+                pr = pairs[i]
+                if len(pr) > 4 and use_c:
+                    layout, v = pr[4]
+                    got = placed.setdefault(id(layout), (layout, [], []))
+                    got[1].append(r)
+                    got[2].append(v)
+                    out[i] = PlacedAln(layout, v, pr[0], pr[1])
+                    continue
+                work.append((i, pr[0], pr[1], pr[2], ops[r], int(j_ends[r]),
                              int(scores[r])))
-            if not work:
-                continue
             with prof.current.stage("align_host_records"):
-                if not native.available():
+                # one GIL-released C call a launch writes each placed
+                # record at its voter's slot, where ``out`` reads it
+                for layout, rows, voters in placed.values():
+                    rows = np.asarray(rows, dtype=np.int64)
+                    layout.place(ops, rows, np.asarray(voters, np.int64),
+                                 j_ends[rows], scores[rows])
+                if not work:
+                    continue
+                if not use_c:
                     leftovers.extend(work)
                     continue
                 # one GIL-released C call per launch; ``phase`` gives

@@ -183,10 +183,15 @@ def test_deep_pipeline_spans_on_three_threads(tmp_path):
                   "locate_select", "segment", "consensus"):
         assert ("c3_locate_0", stage) in named, stage
     for stage in ("align", "align_dispatch", "align_wait",
-                  "align_host_records", "embed", "consensus"):
+                  "align_host_records", "consensus"):
         assert ("c3_align_0", stage) in named, stage
-    for stage in ("vote", "write", "consensus"):
+    # records are built in place in the vote layout: no embed stage
+    assert not any(name == "embed" for _thread, name in named)
+    for stage in ("vote", "vote_native", "write", "consensus"):
         assert (me, stage) in named, stage
+    for s in spans:
+        if s.name == "vote_native":
+            assert ids[s.parent].name == "vote"
     rss = [s for s in spans if s.name == "rss_mb"]
     assert sorted(s.group for s in rss) == groups
     assert all(s.value > 0 for s in rss)
